@@ -1,4 +1,4 @@
-"""pbrt_tpu — a TPU-native differentiable spectral path tracer.
+"""pbrt_tpu — a differentiable spectral path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas renderer with the capabilities of
 scienstanford/pbrt-v4 (the ISET fork of pbrt-v4): hero-wavelength spectral
@@ -25,7 +25,7 @@ Subpackage map (mirrors SURVEY.md section 2 of the reference analysis):
   textures/  texture evaluation                                     (ref: src/pbrt/textures.*)
   media/     participating media + majorant iteration               (ref: src/pbrt/media.*)
   models/    integrators (the renderer's "model families")          (ref: src/pbrt/cpu/integrators.*, wavefront/)
-  ops/       Pallas TPU kernels for the hot paths
+  ops/       Pallas kernels (Triton on the GPU) for the hot paths
   parallel/  mesh/sharding policy, film reduction, multi-host       (green-field; ref has none)
   io/        .pbrt scene parsing, image I/O (EXR/PFM/PNG)           (ref: src/pbrt/parser.*, util/image.*)
   utils/     logging, stats, progress

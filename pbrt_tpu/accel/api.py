@@ -1,15 +1,19 @@
-"""Acceleration dispatch: dense brute force, Pallas clusters, or jnp BVH.
+"""Acceleration dispatch: dense brute force, Pallas kernels, or jnp trees.
 
-The scene carries at most one accelerator: `clusters` (the Pallas cull/test
-kernel, ops/cluster.py — preferred) or `bvh` (the jnp implicit-tree
-traversal, accel/bvh.py — reference implementation). Triangles route through
-it; spheres are always tested densely (scenes have few analytic quadrics).
-Mirrors the reference's Primitive aggregate dispatch (cpu/primitive.h)
-without the polymorphism.
+The scene carries at most one triangle accelerator: `small` (the Pallas
+brute-force kernel, ops/smallscene.py), `sweep` (per-tile candidate culling
+plus the Pallas sweep kernel, ops/sweep.py — the only instancing path),
+`bvh` (the jnp implicit-tree traversal, accel/bvh.py) or `kdtree`
+(accel/kdtree.py). Without one, triangles go to the dense tester
+(accel/dense.py), which is also the oracle the others are tested against.
+Spheres and the other analytic families are always tested densely (scenes
+have few analytic quadrics). Mirrors the reference's Primitive aggregate
+dispatch (cpu/primitive.h) without the polymorphism.
 
-The cluster path builds the full Interaction from attributes selected inside
-the kernel (u, v, normal, mat, light) — zero XLA gathers on the hot
-closest-hit path (this backend lowers gathers per-element).
+Which backend runs the Pallas kernels is one rule (`kernels_compiled`):
+the GPU runs them compiled through Triton; the CPU runs the sweep kernel in
+interpret mode and answers small scenes with the dense tester; any other
+backend raises.
 """
 
 from __future__ import annotations
@@ -24,6 +28,20 @@ from . import dense
 from .bvh import bvh_intersect
 
 _INF = jnp.inf
+
+
+def kernels_compiled() -> bool:
+    """True where the Pallas kernels run compiled (the GPU), False where
+    they run in interpret mode (the CPU). Any other backend has no
+    kernels and raises rather than fall back."""
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return True
+    if backend == "cpu":
+        return False
+    raise NotImplementedError(
+        f"no traversal kernels for the {backend!r} backend (gpu or cpu)"
+    )
 
 
 def _spread8(x):
@@ -43,16 +61,13 @@ def _spread5(x):
 
 @jax.named_scope("accel/ray_sort")
 def ray_sort_perm(o, d, tmax=None):
-    """Coherence permutation for the cluster kernel's per-tile AABB gate.
+    """Coherence permutation for the sweep kernel's per-tile candidate cull.
 
-    The cluster intersector (ops/cluster.py) gates 128-triangle clusters
-    per 1024-ray tile, so a tile's frustum decides the work. In raster
-    order a tile is two full image ROWS — a beam crossing the whole scene
-    — and on bounce 2+ rays are fully incoherent (README noted ~10x
-    degradation). Sorting by 16-bit Morton-interleaved octahedral
-    direction + 15-bit origin Morton makes tiles compact beams: measured
-    1063 -> 527 ms (camera tiles) and 7730 -> 511 ms (shuffled rays) per
-    1M-ray closest-hit on a 35k-triangle scene, for a ~17 ms sort.
+    The sweep kernel (ops/sweep.py) culls cluster entries per ray tile, so
+    a tile's bundle of origins and directions decides the work. In raster
+    order a tile is a strip of image rows, and on bounce 2+ rays are fully
+    incoherent. Sorting by a fine origin Morton code, then by a 16-bit
+    Morton-interleaved octahedral direction, makes tiles compact beams.
     Reference analogue: wavefront ray sorting for traversal coherence.
     """
     an = jnp.sum(jnp.abs(d), axis=-1, keepdims=True)
@@ -73,20 +88,13 @@ def ray_sort_perm(o, d, tmax=None):
         _spread8(q8[:, 0]) | (_spread8(q8[:, 1]) << 1)
         | (_spread8(q8[:, 2]) << 2)
     ).astype(jnp.uint32)  # 24 bits (256^3 cells)
-    # Two-key lexicographic sort: FINE origin Morton major (24 bits),
-    # full direction Morton minor. One 32-bit key cannot hold both at
-    # full precision; two stable argsorts give the exact lexicographic
-    # order for one extra sort (~17 ms / 1M rays). Measured on the
-    # killeroo-class mesh (scripts/micro_sortkeys.py, v5e): camera rays
-    # keep the direction-sorted 222 ms (shared origin cell -> direction
-    # order dominates), while diffuse bounce rays go 2692 -> ~850 ms: the
-    # old 32^3 origin cells scattered a tile over ~34 cells, wider than
-    # raster locality, which is why sorting HURT bounce rays in round 4.
+    # Two-key lexicographic sort: fine origin Morton major (24 bits), full
+    # direction Morton minor. One 32-bit key cannot hold both at full
+    # precision; two stable argsorts give the exact lexicographic order.
     if tmax is not None:
-        # Dead lanes (tmax <= 0) sort into their own tiles, where every
-        # slab gate fails instantly (tmin < t_best=0 is never true) — the
-        # tile-level form of wavefront dead-lane compaction: masked-out
-        # rays stop charging the traversal kernel.
+        # Dead lanes (tmax <= 0) sort into their own tiles, which get no
+        # candidates — the tile-level form of wavefront dead-lane
+        # compaction: masked-out rays stop charging the traversal kernel.
         ocode = ocode | jnp.where(
             tmax <= 0.0, jnp.uint32(1) << 30, jnp.uint32(0)
         )
@@ -114,7 +122,9 @@ def resolve_tri_attrs_inst(geom, sweep_accel, o, d, prim, inst):
         jnp.clip(jnp.maximum(inst, 0), 0, sweep_accel.o2w.shape[0] - 1)
     ]  # (N, 12)
     m = rows.reshape(-1, 3, 4)
-    tv = jnp.einsum("nij,nkj->nki", m[:, :, :3], tv) + m[:, None, :, 3]
+    tv = jnp.einsum(
+        "nij,nkj->nki", m[:, :, :3], tv, precision=jax.lax.Precision.HIGHEST
+    ) + m[:, None, :, 3]
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
     ng = normalize(jnp.cross(e1, e2))
@@ -134,13 +144,11 @@ def resolve_tri_attrs_inst(geom, sweep_accel, o, d, prim, inst):
 def resolve_tri_attrs(geom, o, d, prim):
     """Batched post-traversal attribute resolution for triangle hits.
 
-    The Pallas traversal kernels return only (t, prim); gathering the hit
-    triangle's row and re-evaluating u/v/normal here costs one native
-    gather (~8 ms per 1M rays at 122k tris) versus the in-kernel
-    per-cluster attribute select chain (~45% of traversal time, measured
-    scripts/micro_entry.py). Mirrors the reference's split between OptiX
-    traversal results and SurfaceInteraction construction
-    (gpu/optix.cu __closesthit__ -> intersect.h EnqueueWorkAfterIntersection).
+    The sweep kernel returns only (t, prim); the hit triangle's row is
+    gathered and u/v/normal re-evaluated here in one batched pass. Mirrors
+    the reference's split between OptiX traversal results and
+    SurfaceInteraction construction (gpu/optix.cu __closesthit__ ->
+    intersect.h EnqueueWorkAfterIntersection).
     """
     n_tri = geom.num_triangles
     tri_idx = jnp.clip(jnp.maximum(prim, 0), 0, max(n_tri - 1, 0))
@@ -246,15 +254,15 @@ def _merge_disk_cyl(geom, o, d, isect: Interaction) -> Interaction:
 
 def _tri_closest_once(scene, o, d, tmax):
     """One triangle-family closest-hit query via the scene's accelerator
-    (sweep / smallscene / clusters / dense oracle). Returns a dict with
-    t (inf = miss), prim (-1 = miss), u, v, ng, mat, light."""
+    (sweep / smallscene / dense oracle). Returns a dict with t (inf =
+    miss), prim (-1 = miss), u, v, ng, mat, light."""
     geom = scene.geom
     small = getattr(scene, "small", None)
     sweep = getattr(scene, "sweep", None)
     if sweep is not None:
         from ..ops.sweep import sweep_intersect
 
-        interp = jax.default_backend() == "cpu"
+        interp = not kernels_compiled()
         perm, invp = ray_sort_perm(o, d, tmax)
         res = sweep_intersect(
             sweep, o[perm], d[perm], tmax[perm], any_hit=False,
@@ -267,27 +275,13 @@ def _tri_closest_once(scene, o, d, tmax):
             )
         else:
             u, v, ng, mat, light = resolve_tri_attrs(geom, o, d, prim)
-    elif small is not None and jax.default_backend() != "cpu":
-        # The brute-force VMEM kernel; on CPU the interpreter would walk
-        # the grid in Python, so the dense XLA tester (bit-equivalent,
-        # gated by tests/test_intersect.py) serves there instead.
+    elif small is not None and kernels_compiled():
         from ..ops.smallscene import smallscene_intersect
 
         res = smallscene_intersect(small, o, d, tmax, any_hit=False)
         t, prim = res["t"], res["prim"]
         u, v, ng = res["u"], res["v"], res["n"]
         mat, light = res["mat"], res["light"]
-    elif scene.clusters is not None:
-        from ..ops.cluster import cluster_intersect
-
-        interp = jax.default_backend() == "cpu"
-        perm, invp = ray_sort_perm(o, d, tmax)
-        res = cluster_intersect(
-            scene.clusters, o[perm], d[perm], tmax[perm], any_hit=False,
-            interpret=interp, defer_attrs=True,
-        )
-        t, prim = res["t"][invp], res["prim"][invp]
-        u, v, ng, mat, light = resolve_tri_attrs(geom, o, d, prim)
     elif geom.num_triangles > 0 and getattr(scene, "anim", None) is None:
         t, prim, u, v = dense.intersect_closest_tri(geom, o, d, tmax)
         u, v, ng, mat, light0 = resolve_tri_attrs(geom, o, d, prim)
@@ -398,8 +392,8 @@ def closest(scene, o, d, tmax=None, time=None) -> Interaction:
     small = getattr(scene, "small", None)
     sweep = getattr(scene, "sweep", None)
     anim = getattr(scene, "anim", None)
-    if scene.bvh is None and getattr(scene, "clusters", None) is None \
-            and small is None and getattr(scene, "kdtree", None) is None \
+    if scene.bvh is None and small is None \
+            and getattr(scene, "kdtree", None) is None \
             and sweep is None and anim is None and not geom.has_alpha:
         isect = dense.intersect_closest(geom, o, d, tmax)
         u2, v2 = interp_tri_uv(
@@ -412,8 +406,7 @@ def closest(scene, o, d, tmax=None, time=None) -> Interaction:
     if tmax is None:
         tmax = jnp.full((n_rays,), _INF, o.dtype)
 
-    if sweep is not None or scene.clusters is not None \
-            or small is not None or geom.has_alpha \
+    if sweep is not None or small is not None or geom.has_alpha \
             or (scene.bvh is None
                 and getattr(scene, "kdtree", None) is None):
         res = _tri_closest(scene, o, d, tmax)
@@ -581,7 +574,7 @@ def any_hit(scene, o, d, tmax, time=None) -> jnp.ndarray:
     if sweep is not None:
         from ..ops.sweep import sweep_intersect
 
-        interp = jax.default_backend() == "cpu"
+        interp = not kernels_compiled()
         perm, invp = ray_sort_perm(o, d, tmax)
         res = sweep_intersect(
             sweep, o[perm], d[perm], tmax[perm], any_hit=True,
@@ -589,8 +582,8 @@ def any_hit(scene, o, d, tmax, time=None) -> jnp.ndarray:
         )
         occ = (res["prim"] >= 0)[invp]
         return _merge_anyhit_quadrics(geom, o, d, tmax, with_anim(occ))
-    if scene.bvh is None and getattr(scene, "clusters", None) is None \
-            and small is None and getattr(scene, "kdtree", None) is None:
+    if scene.bvh is None and small is None \
+            and getattr(scene, "kdtree", None) is None:
         if anim is None:
             occ = dense.intersect_any(geom, o, d, tmax)
         else:
@@ -612,26 +605,15 @@ def any_hit(scene, o, d, tmax, time=None) -> jnp.ndarray:
         from .kdtree import kdtree_intersect
 
         occ = kdtree_intersect(scene.kdtree, o, d, tmax, any_hit=True)
-    elif small is not None and jax.default_backend() != "cpu":
+    elif small is not None and kernels_compiled():
         from ..ops.smallscene import smallscene_intersect
 
         res = smallscene_intersect(small, o, d, tmax, any_hit=True)
         occ = res["prim"] >= 0
     elif small is not None:
-        # CPU fallback: the dense tester covers tri/sphere/curve; the
-        # quadric families merge below (the extra sphere/curve ORs are
-        # no-ops).
+        # CPU: the dense tester covers tri/sphere/curve; the quadric
+        # families merge below (the extra sphere/curve ORs are no-ops).
         occ = dense.intersect_any(geom, o, d, tmax)
-    elif scene.clusters is not None:
-        from ..ops.cluster import cluster_intersect
-
-        interp = jax.default_backend() == "cpu"
-        perm, invp = ray_sort_perm(o, d, tmax)
-        res = cluster_intersect(
-            scene.clusters, o[perm], d[perm], tmax[perm], any_hit=True,
-            interpret=interp,
-        )
-        occ = (res["prim"] >= 0)[invp]
     else:
         _, prim, _, _ = bvh_intersect(scene.bvh, o, d, tmax, any_hit=True)
         occ = prim >= 0

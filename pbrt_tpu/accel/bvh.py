@@ -3,7 +3,7 @@ with a batched masked traversal on device.
 
 Reference analogue: BVHAggregate (/root/reference/src/pbrt/cpu/aggregates.h:31)
 — HLBVH Morton build (aggregates.cpp:389-505) and the stack-based traversal
-(:529-624). TPU redesign per SURVEY.md section 7:
+(:529-624). Redesign per SURVEY.md section 7:
   * build: numpy-vectorized Morton sort -> COMPLETE implicit binary tree over
     2^k leaf slots (heap layout: children of i are 2i+1/2i+2). No pointers,
     no flattening pass; node boxes come from one bottom-up vectorized reduce.

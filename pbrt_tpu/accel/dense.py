@@ -1,14 +1,13 @@
 """Brute-force (dense) ray-scene intersection, blocked over primitives.
 
-For scenes with up to a few thousand primitives this beats any traversal
-structure on TPU: every ray tests every primitive in lockstep on the VPU with
-no divergence and no gathers in the inner loop. The per-block running minimum
-is carried through a lax.scan so peak memory is O(N_rays * BLOCK).
+Every ray tests every primitive in lockstep with no divergence and no
+gathers in the inner loop; it is the plain XLA oracle the Pallas kernels
+(ops/) are tested against. The per-block running minimum is carried through
+a lax.scan so peak memory is O(N_rays * BLOCK).
 
-Layout note (the TPU-critical choice): all inner-loop arithmetic is on
-(N_rays, BLOCK) component arrays — the primitive-block axis is the 128-lane
-vector dimension. A naive (N, B, 3) vector layout would put extent-3 on the
-lane axis and waste 42/43 of the VPU.
+Layout note: all inner-loop arithmetic is on (N_rays, BLOCK) component
+arrays, so the primitive-block axis is the vectorized one rather than an
+extent-3 (x, y, z) axis.
 
 Reference analogue: the ray-triangle test of
 /root/reference/src/pbrt/shapes.h:820-833 (Moller-Trumbore here; watertight

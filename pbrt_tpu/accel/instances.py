@@ -5,7 +5,7 @@ primitive.cpp:40-77): the instance's object-to-world transform is an
 AnimatedTransform; each ray interpolates it at ray.time, transforms into
 object space, intersects the prototype, and maps the interaction back.
 
-TPU design: animated instances are intersected OUTSIDE the Pallas sweep
+Design: animated instances are intersected OUTSIDE the Pallas sweep
 kernel in a fully vectorized XLA pass — the per-ray transform interpolation
 (lerp T / slerp R / lerp S, core/transform.py) is a handful of (N, 3, 3)
 matmuls, and the prototype triangles are tested with a chunked dense
@@ -143,8 +143,8 @@ def animated_best(anim: AnimatedInstances, geom, o, d, t_cur, time):
     for a, (start, count) in enumerate(anim.ranges):
         lin, tr = anim.xforms[a].interpolate_matrices(time)  # (N,3,3),(N,3)
         w2o = _inv3(lin)
-        o_l = jnp.einsum("nij,nj->ni", w2o, o - tr)
-        d_l = jnp.einsum("nij,nj->ni", w2o, d)  # unnormalized: t preserved
+        o_l = jnp.einsum("nij,nj->ni", w2o, o - tr, precision=jax.lax.Precision.HIGHEST)
+        d_l = jnp.einsum("nij,nj->ni", w2o, d, precision=jax.lax.Precision.HIGHEST)  # unnormalized: t preserved
         tris = tri_verts[start : start + count]
         t_a, p_l, u_a, v_a = _proto_mt(
             tris, o_l, d_l, jnp.minimum(t_b, t_out)
@@ -154,8 +154,12 @@ def animated_best(anim: AnimatedInstances, geom, o, d, t_cur, time):
         # World-space geometric normal: transform the hit triangle's
         # edges by the per-ray interpolated linear part.
         tv = tri_verts[jnp.clip(prim_g, start, start + count - 1)]
-        e1w = jnp.einsum("nij,nj->ni", lin, tv[:, 1] - tv[:, 0])
-        e2w = jnp.einsum("nij,nj->ni", lin, tv[:, 2] - tv[:, 0])
+        e1w = jnp.einsum(
+            "nij,nj->ni", lin, tv[:, 1] - tv[:, 0], precision=jax.lax.Precision.HIGHEST
+        )
+        e2w = jnp.einsum(
+            "nij,nj->ni", lin, tv[:, 2] - tv[:, 0], precision=jax.lax.Precision.HIGHEST
+        )
         ngw = jnp.cross(e1w, e2w)
         ngw = ngw / jnp.maximum(
             jnp.linalg.norm(ngw, axis=-1, keepdims=True), 1e-20

@@ -11,8 +11,8 @@ traversal is pure gathers.
 Traversal is the reference's parametric short-stack walk
 (aggregates.cpp:1030-1151) expressed as a jax.lax.while_loop under vmap:
 each ray carries a fixed 64-entry (node, tMin, tMax) todo stack. This is a
-capability/parity engine — Morton clusters (ops/cluster.py) remain the
-performance path on TPU, exactly as pbrt defaults to the BVH.
+capability/parity engine — the Pallas kernels (ops/smallscene.py,
+ops/sweep.py) are the performance path, as pbrt defaults to the BVH.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Reference analogue: RealisticCamera's element-by-element lens tracing
 (/root/reference/src/pbrt/cameras.h:485-604, TraceLensesFromFilm) and the
-conic/aspheric surfaces of OmniCamera/HumanEyeCamera (:607-1086). TPU
-design: the element list is a small SOA of per-surface parameters; a batched
+conic/aspheric surfaces of OmniCamera/HumanEyeCamera (:607-1086).
+Design: the element list is a small SOA of per-surface parameters; a batched
 scan advances ALL rays through one surface at a time (closed-form conicoid
 intersection + Snell refraction), with a validity mask instead of early
 returns.

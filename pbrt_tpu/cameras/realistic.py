@@ -7,7 +7,7 @@ ISET OmniCamera (:853-1086): conic/aspheric surfaces, microlens arrays
 TraceFullLensSystemFromFilm), and HURB diffraction at the stop
 (cameras.cpp:2742 diffractHURB; enabled by `diffraction`).
 
-TPU design: GenerateRay = sample a point on the rear element disk (or the
+Design: GenerateRay = sample a point on the rear element disk (or the
 film point's microlens window), build the film->rear ray, then trace the
 whole batch through the stack(s) with scans. Rays clipped by apertures
 return weight 0 (vignetting) instead of resampling — the film accumulates

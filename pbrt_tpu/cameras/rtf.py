@@ -3,8 +3,8 @@
 Reference analogue: the ISET fork's RTFCamera
 (/root/reference/src/pbrt/cameras.h:1088-1143 + rtf/passnopass.h): instead of
 tracing lens elements, a fitted polynomial maps (film position, pupil sample)
--> output ray, with pass/no-pass pupil predicates for vignetting. Trivially
-TPU-friendly — the whole camera is a fused polynomial evaluation.
+-> output ray, with pass/no-pass pupil predicates for vignetting. The whole
+camera is a fused polynomial evaluation.
 
 This build stores dense multivariate monomial coefficients and also provides
 `fit_from_camera`, which fits the polynomial TO a lens camera by tracing a

@@ -1,69 +1,16 @@
-"""TPU-friendly row gathers.
-
-XLA's generic gather lowers catastrophically on TPU (per-element loads); for
-the renderer's table lookups (materials, lights, small geometry tables) a
-one-hot matmul is orders of magnitude faster: build (N, M) one-hot rows and
-contract against the (M, K) table on the MXU. Exact for integer-valued and
-float tables alike (f32 accumulate).
-
-Cost: N*M one-hot + N*M*K MACs — the right trade whenever M (table rows) is
-at most a few thousand. Larger tables should route data through Pallas
-kernels instead (see ops/cluster.py hit-attribute selection).
-"""
+"""Row gathers for the renderer's table lookups (materials, lights, small
+geometry tables)."""
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
-_CHAIN_MAX = 64
-_ONEHOT_MAX = 4096
 
-
-def gather_rows(table, idx, max_onehot: int = _ONEHOT_MAX):
+def gather_rows(table, idx):
     """table: (M, ...) array; idx: (N,) int32 -> (N, ...) gathered rows.
 
-    M <= 64: unrolled where-select chain (pure VPU, ~mus).
-    M <= max_onehot: one-hot matmul.
-    larger: native gather (slow — route such data through Pallas instead).
+    jnp.asarray: callers may pass numpy tables (module-scope constants are
+    kept numpy so imports never initialize the backend), and
+    numpy.__getitem__ rejects traced indices.
     """
-    m = table.shape[0]
-    if m == 0 or m > max_onehot or jax.default_backend() != "tpu":
-        # Only the TPU backend needs the gather workaround (its XLA gather
-        # lowering is per-element); CPU/GPU native gathers are fine.
-        # jnp.asarray: callers may pass numpy tables (module-scope constants
-        # are kept numpy so imports never initialize the backend), and
-        # numpy.__getitem__ rejects traced indices.
-        return jnp.asarray(table)[idx]
-    n = idx.shape[0]
-    flat = table.reshape(m, -1)
-    if m <= _CHAIN_MAX:
-        out = jnp.zeros((n, flat.shape[1]), flat.dtype if flat.dtype != jnp.bool_ else jnp.float32)
-        fl = flat.astype(out.dtype)
-        for row in range(m):
-            out = jnp.where((idx == row)[:, None], fl[row][None, :], out)
-        if flat.dtype == jnp.bool_:
-            out = out > 0.5
-        out = out.astype(table.dtype)
-    elif flat.dtype in (jnp.int32, jnp.int64):
-        out = jnp.round(
-            _onehot_matmul(flat.astype(jnp.float32), idx)
-        ).astype(table.dtype)
-    elif flat.dtype == jnp.bool_:
-        out = _onehot_matmul(flat.astype(jnp.float32), idx) > 0.5
-    else:
-        out = _onehot_matmul(flat, idx)
-    return out.reshape((idx.shape[0],) + table.shape[1:])
-
-
-def _onehot_matmul(flat, idx):
-    m = flat.shape[0]
-    oh = jax.nn.one_hot(idx, m, dtype=flat.dtype)
-    # HIGHEST precision: the MXU's bf16 truncation would corrupt positions;
-    # the f32-emulation passes are still far cheaper than an XLA gather.
-    return jnp.dot(
-        oh,
-        flat,
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
+    return jnp.asarray(table)[idx]

@@ -6,7 +6,7 @@ bilinear / trilinear filters selected by a level-of-detail width, and EWA
 (elliptically weighted average) anisotropic filtering driven by the two uv
 screen-space differentials.
 
-TPU-first layout: the pyramid is ONE flat (T, C) texel table plus static
+Layout: the pyramid is ONE flat (T, C) texel table plus static
 per-level (offset, width, height) tuples, so a lookup with a *traced* level
 is pure index arithmetic into a single array instead of a dynamic switch
 over L differently-shaped buffers (XLA needs static shapes per operand; a
@@ -152,7 +152,7 @@ class MIPMap:
         level is chosen from the MINOR axis; the ellipse is scanned over a
         static (window x window) texel footprint at that level (the
         reference walks the exact ellipse bounding box; a fixed window keeps
-        the TPU kernel shape static — widths beyond it fall back to the
+        the kernel shape static — widths beyond it fall back to the
         clamped major axis, matching the reference's max-anisotropy clamp).
         """
         d0 = jnp.sqrt(jnp.sum(duv0 * duv0, axis=-1))

@@ -2,8 +2,8 @@
 
 Reference analogue: /root/reference/src/pbrt/util/noise.h/.cpp (Noise, FBm,
 Turbulence — used by the FBm/Windy/Wrinkled/Marble textures). Hash-based
-gradients (no permutation tables) so the lattice hashing is pure arithmetic
-on the VPU.
+gradients (no permutation tables) so the lattice hashing is pure
+arithmetic.
 """
 
 from __future__ import annotations

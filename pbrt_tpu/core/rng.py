@@ -1,14 +1,14 @@
 """Stateless counter-based RNG for Monte Carlo sampling.
 
 Reference analogue: PCG32 (/root/reference/src/pbrt/util/rng.h:25-34). The
-C++ renderer carries mutable RNG state per thread; on TPU every random number
+C++ renderer carries mutable RNG state per thread; here every random number
 is instead a *pure hash* of its coordinates (pixel, sample index, bounce,
 dimension, seed) so the whole render is a deterministic function and any ray
-can be replayed bit-exactly (the TPU-native `--debugstart`).
+can be replayed bit-exactly (the stateless `--debugstart`).
 
 Hash: pcg3d/pcg4d-style mixed-congruential finalizers (Jarzynski & Olano,
 "Hash Functions for GPU Rendering", JCGT 2020 — public domain algorithm).
-All ops are uint32 with wrapping arithmetic; fast on the VPU.
+All ops are uint32 with wrapping arithmetic.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Reference analogue: SampledSpectrum / SampledWavelengths in
 /root/reference/src/pbrt/util/spectrum.h:36-380. The ISET fork carries **31**
 spectral samples per ray over 395-705 nm (spectrum.h:34-36); we carry **32**
-(`N_SPECTRUM`) so the spectral axis fills a TPU vector lane dimension exactly —
-one extra Monte Carlo wavelength sample, identical estimator semantics.
+(`N_SPECTRUM`), a power of two — one extra Monte Carlo wavelength sample,
+identical estimator semantics.
 
 A SampledSpectrum here is simply a float array whose trailing axis has extent
 N_SPECTRUM; all arithmetic is plain jnp. SampledWavelengths is a pytree of
@@ -18,8 +18,8 @@ import jax.numpy as jnp
 from . import cie
 from .pytree import pytree
 
-# Spectral lane count. Default 32 = the ISET fork's 31 samples padded to the
-# TPU lane width (spectrum.h:34). Upstream pbrt-v4 uses 4 hero wavelengths;
+# Spectral lane count. Default 32 = the ISET fork's 31 samples plus one
+# (spectrum.h:34). Upstream pbrt-v4 uses 4 hero wavelengths;
 # set PBRT_TPU_NSPECTRUM=4/8 for the cheaper upstream-style mode (identical
 # estimator semantics, ~4-8x less spectral compute per ray, slightly higher
 # color noise at equal spp).

@@ -9,6 +9,7 @@ arguments, so one Transform applies to millions of rays in one fused op.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from .pytree import pytree, static_field
@@ -218,15 +219,15 @@ class AnimatedTransform:
             (1.0 - dt)[..., None, None] * self.s_start[None]
             + dt[..., None, None] * self.s_end[None]
         )
-        return jnp.einsum("nij,njk->nik", r, s), trans
+        return jnp.einsum("nij,njk->nik", r, s, precision=jax.lax.Precision.HIGHEST), trans
 
     def apply_point(self, p, time):
         lin, tr = self.interpolate_matrices(time)
-        return jnp.einsum("nij,nj->ni", lin, p) + tr
+        return jnp.einsum("nij,nj->ni", lin, p, precision=jax.lax.Precision.HIGHEST) + tr
 
     def apply_vector(self, v, time):
         lin, _ = self.interpolate_matrices(time)
-        return jnp.einsum("nij,nj->ni", lin, v)
+        return jnp.einsum("nij,nj->ni", lin, v, precision=jax.lax.Precision.HIGHEST)
 
     def apply_ray(self, o, d, time):
         return self.apply_point(o, time), self.apply_vector(d, time)

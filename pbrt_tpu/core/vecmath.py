@@ -1,9 +1,9 @@
 """Vector geometry on batched (..., 3) arrays.
 
-TPU-native counterpart of /root/reference/src/pbrt/util/vecmath.h (Point3f /
+Counterpart of the reference's src/pbrt/util/vecmath.h (Point3f /
 Vector3f / Normal3f / Frame / OctahedralVector). There are no vector *types*:
 a point is any float array whose trailing axis has extent 3, and every routine
-is batched over leading axes so it vectorizes on the VPU.
+is batched over leading axes so it vectorizes.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ def octahedral_encode(v):
     """Unit vector -> 2D octahedral coordinates in [-1, 1]^2.
 
     Reference analogue: OctahedralVector (src/pbrt/util/vecmath.h:1735); we
-    keep float32 coordinates rather than 16-bit quantization (VPU-friendly).
+    keep float32 coordinates rather than 16-bit quantization (cheaper to decode).
     """
     d = jnp.sum(jnp.abs(v), axis=-1, keepdims=True)
     p = v[..., :2] / d

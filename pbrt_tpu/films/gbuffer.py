@@ -10,6 +10,7 @@ compression at write time (film.cpp:836-1005).
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..accel import api as accel_api
@@ -94,7 +95,9 @@ def render_aovs(scene, camera, integrator, spp: int = 4, seed: int = 0,
             )
             oh = jax.nn.one_hot(b, spectral_buckets, dtype=radiance.dtype)
             w = spec_mod.safe_div(radiance, wl.pdf)
-            spectral = jnp.einsum("ns,nsb->nb", w, oh) / radiance.shape[-1]
+            spectral = jnp.einsum(
+                "ns,nsb->nb", w, oh, precision=jax.lax.Precision.HIGHEST
+            ) / radiance.shape[-1]
             out["spectral"] = avg(spectral)
         return out
 

@@ -7,7 +7,7 @@ reporting the redundant bytes saved. Scene exporters routinely redeclare
 the same mesh (or re-reference the same PLY) under many transforms, so the
 dedup is large on production scenes.
 
-TPU-side design: the cache lives at parse time only (device buffers are
+Design: the cache lives at parse time only (device buffers are
 fused per-scene SOA tables, already unique); deduping here shares host
 numpy arrays and skips repeated PLY parses. Stats feed utils.stats.STATS
 like the reference's redundant-bytes counters.

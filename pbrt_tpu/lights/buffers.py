@@ -11,6 +11,7 @@ RGBIlluminantSpectrum, lights.cpp DiffuseAreaLight) or flat.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..core import cie, rgb2spec
@@ -752,7 +753,7 @@ class LightBuffers:
             g = gather_rows(self._area_packed(), ai)  # (N, 16)
             verts = g[:, 0:9].reshape(-1, 3, 3)
             b = sample_uniform_triangle(u_pos)  # (N,3)
-            p_l = jnp.einsum("nk,nkj->nj", b, verts)
+            p_l = jnp.einsum("nk,nkj->nj", b, verts, precision=jax.lax.Precision.HIGHEST)
             e1 = verts[:, 1] - verts[:, 0]
             e2 = verts[:, 2] - verts[:, 0]
             n_l = normalize(jnp.cross(e1, e2))
@@ -904,7 +905,7 @@ class LightBuffers:
                 -1, 3, 3
             )
             # Light-space direction from light toward the shading point.
-            w_l = jnp.einsum("nij,nj->ni", rot, -wi_j)
+            w_l = jnp.einsum("nij,nj->ni", rot, -wi_j, precision=jax.lax.Precision.HIGHEST)
             tanh = gather_rows(self.proj_tan, ji)
             z = jnp.maximum(w_l[:, 2], 1e-6)
             uu = 0.5 * (w_l[:, 0] / (z * tanh) + 1.0)
@@ -937,7 +938,7 @@ class LightBuffers:
             rot = gather_rows(self.gonio_rot.reshape(-1, 9), gi).reshape(
                 -1, 3, 3
             )
-            w_l = jnp.einsum("nij,nj->ni", rot, -wi_g)
+            w_l = jnp.einsum("nij,nj->ni", rot, -wi_g, precision=jax.lax.Precision.HIGHEST)
             from ..core.vecmath import equal_area_sphere_to_square
 
             uv_g = equal_area_sphere_to_square(w_l)
@@ -1086,7 +1087,7 @@ class LightBuffers:
                 self.area_verts.reshape(-1, 9), ai
             ).reshape(-1, 3, 3)
             b = sample_uniform_triangle(u_pos)
-            p_a = jnp.einsum("nk,nkj->nj", b, verts)
+            p_a = jnp.einsum("nk,nkj->nj", b, verts, precision=jax.lax.Precision.HIGHEST)
             n_a = normalize(
                 jnp.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
             )

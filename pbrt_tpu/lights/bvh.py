@@ -6,10 +6,9 @@ builds a pointer tree of 32-byte quantized nodes and walks it with a
 data-dependent loop per shading point; here the tree is flattened at build
 time (host numpy) into one packed (n_nodes, 16) f32 matrix, and traversal is
 a fixed-depth lax.scan of masked stochastic descents — every ray fetches its
-current node's two children with one one-hot-matmul gather and descends by
-relative importance. Nodes stay unquantized f32: on TPU the node fetch is a
-matmul row, so the reference's bit-packing (octahedral axis + 15-bit cosine)
-would cost decode ALU without saving any bandwidth.
+current node's two children with one row gather and descends by relative
+importance. Nodes stay unquantized f32 (one 64-byte row per node) rather
+than the reference's bit-packing (octahedral axis + 15-bit cosine).
 
 PMF evaluation (needed for MIS when a BSDF ray lands on a light) replays the
 descent along the light's precomputed root->leaf path: build records, per

@@ -18,6 +18,7 @@ portal bounds, matching the reference's Le.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..core import rgb2spec
@@ -82,7 +83,7 @@ class PortalLight:
     # -- direction <-> image mappings (lights.cpp ImageFromRender) ----------
 
     def dir_to_uv(self, w):
-        wl = jnp.einsum("ij,...j->...i", self.frame, w)
+        wl = jnp.einsum("ij,...j->...i", self.frame, w, precision=jax.lax.Precision.HIGHEST)
         z = wl[..., 2]
         ok = z > 1e-6
         zs = jnp.where(ok, z, 1.0)
@@ -100,11 +101,13 @@ class PortalLight:
             [jnp.tan(alpha), jnp.tan(beta), jnp.ones_like(alpha)], axis=-1
         )
         wl = normalize(wl)
-        return jnp.einsum("ji,...j->...i", self.frame, wl)  # frame^T @ wl
+        return jnp.einsum(
+            "ji,...j->...i", self.frame, wl, precision=jax.lax.Precision.HIGHEST
+        )  # frame^T @ wl
 
     def _duv_dw(self, w):
         """Jacobian d(uv-area)/d(solid angle): pdf_dir = pdf_uv / this."""
-        wl = jnp.einsum("ij,...j->...i", self.frame, w)
+        wl = jnp.einsum("ij,...j->...i", self.frame, w, precision=jax.lax.Precision.HIGHEST)
         x, y, z = wl[..., 0], wl[..., 1], jnp.maximum(wl[..., 2], 1e-6)
         return (_PI * _PI) * (z * z + x * x) * (z * z + y * y) / z
 

@@ -7,7 +7,7 @@ and inverts it by table search; this implementation replaces the tables
 with Christensen-Burley's closed-form normalized-diffusion profile
 (public method: "Approximate Reflectance Profiles for Efficient Subsurface
 Scattering", Pixar tech memo 15-04) — an analytic profile + analytic-ish
-CDF inversion means NO table gathers on TPU, which is exactly the
+CDF inversion means NO table gathers, which is exactly the
 rgb2spec-style on-the-fly-fit tradeoff this framework makes elsewhere.
 
 Pieces:

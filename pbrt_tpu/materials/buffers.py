@@ -205,10 +205,9 @@ class MaterialBuffers:
     def gather(self, mat_idx):
         """Per-ray material parameters.
 
-        All fields are packed into one (M, 14) matrix so a single
-        select-chain/one-hot pass serves every parameter (9 separate gathers
-        measured ~8 ms at 262k rays; packed ~1 ms). Packing happens inside
-        gather so gradients still flow to the individual field arrays.
+        All fields are packed into one (M, 14) matrix so a single row
+        gather serves every parameter. Packing happens inside gather so
+        gradients still flow to the individual field arrays.
         """
         f32 = jnp.float32
         packed = jnp.concatenate(

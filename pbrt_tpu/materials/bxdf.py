@@ -6,9 +6,9 @@ local-frame wrapper (bsdf.h:19). Directions are in the *shading-local* frame
 (z = shading normal). Spectral throughputs have shape (N, S).
 
 Dispatch model: every BxDF family evaluates for all rays and the material
-`kind` tag selects per ray (jnp.where) — the TPU replacement for
+`kind` tag selects per ray (jnp.where) — the replacement for
 TaggedPointer::Dispatch (util/taggedptr.h:22-60). For this closed set of
-families, evaluate-all-and-select keeps the VPU fully utilized; tag-sorted
+families, evaluate-all-and-select keeps every lane busy; tag-sorted
 queue partitioning is the planned optimization for wider material sets.
 """
 

@@ -1,6 +1,6 @@
 """Chiang-style hair BSDF, vectorized over rays and spectral lanes.
 
-TPU-first re-design of the reference HairBxDF (/root/reference/src/pbrt/
+Re-design of the reference HairBxDF (src/pbrt/
 bxdfs.h:1054-1152, bxdfs.cpp:280-620): the per-lobe loop over scattering
 orders p=0..pMax becomes a stacked p-axis so the longitudinal (Mp),
 azimuthal (Np) and attenuation (Ap) factors evaluate as one batched

@@ -4,7 +4,7 @@ Reference analogue: MeasuredBxDF (/root/reference/src/pbrt/bxdfs.h:1155,
 bxdfs.cpp) over the Dupuy-Jakob RGL data format. That format stores
 NDF-warped spectra tables; this implementation keeps the *capability*
 (render from measured reflectance data with no analytic model) with a
-TPU-first representation: a dense isotropic half-angle table
+a batched representation: a dense isotropic half-angle table
 f(theta_h, theta_d, phi_d) — the classic MERL parameterization the RGL
 format itself is distilled from — holding per-cell RGB that is lifted to
 spectra on evaluation via the renderer's sigmoid fits.

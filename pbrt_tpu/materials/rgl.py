@@ -8,7 +8,7 @@ theta_i/phi_i node arrays, ndf / sigma (projected area) grids, the vndf
 marginal-conditional warp, and a 5D `spectra` tensor stored in the WARPED
 unit square (so evaluation needs the inverse VNDF warp).
 
-TPU design: the renderer's runtime measured-BRDF representation stays the
+Design: the renderer's runtime measured-BRDF representation stays the
 half-angle table of materials/measured.py (one trilinear-tap evaluation on
 device). This module is host-side: it reads the tensor file, evaluates the
 RGL parameterization exactly (numpy, including the piecewise-bilinear

@@ -9,7 +9,7 @@ the scene on every lane — cheap for 1-2 families, but a scene mixing coated
 (layered random walk), hair, and measured materials pays the sum of all of
 them per ray.
 
-TPU redesign: there are no queues or atomics — instead rays are argsorted by
+Redesign: there are no queues or atomics — instead rays are argsorted by
 material kind each bounce and processed in fixed-size tiles through a
 `lax.map` whose body `lax.switch`es on the tile's tag:
 

@@ -3,10 +3,10 @@
 Reference analogue: HomogeneousMedium (/root/reference/src/pbrt/media.h:217),
 GridMedium (:265), MajorantGrid (:105-133), DDAMajorantIterator (:136-214).
 
-TPU design: ONE scene-level medium occupying a world AABB (vacuum outside);
+Design: ONE scene-level medium occupying a world AABB (vacuum outside);
 `kind` is static so the integrator compiles the right sampling loop. The
 density grid is a dense (nz, ny, nx) tensor sampled trilinearly (a fused
-gather-free-ish lookup on the VPU); the majorant grid is a coarse max-pool of
+gather-free-ish lookup); the majorant grid is a coarse max-pool of
 sigma_t * density used by the DDA walk. Nested/per-shape media arrive with
 the medium-interface tier.
 """
@@ -37,7 +37,7 @@ class MediumStack:
     Reference analogue: per-primitive MediumInterface (media.h:55-80 +
     cpu/integrators.cpp VolPathIntegrator ray.medium threading): each
     dielectric-bounded shape can carry an interior medium; rays switch
-    medium on transmission. TPU design: all interior media live in one
+    medium on transmission. Design: all interior media live in one
     (M, ...) SOA; the integrator carries an (N,) medium index and gathers
     spectral coefficients per ray — homogeneous media then admit
     closed-form free-flight sampling (no majorant walk). Shape-bounded (not
@@ -340,9 +340,8 @@ class MediumBuffers:
         f = gc - gi
         gi = gi.astype(jnp.int32)
 
-        # Flat 1-D gathers: measurably cheaper than 3-D advanced indexing
-        # on the TPU backend (XLA lowers multi-axis index math into the
-        # gather; precomputing the flat offset keeps it out).
+        # Flat 1-D gathers: precomputing the flat offset keeps the
+        # multi-axis index math out of the gather.
         flat = field.reshape((nz * ny * nx,) + field.shape[3:])
 
         def tap(dx, dy, dz):
@@ -510,8 +509,7 @@ class MediumBuffers:
         (max over lambda of sigma_a + sigma_s). Outside the grid returns 0
         (vacuum). The reference walks DDA segments and yields (t0, t1,
         sigma_maj) per cell; here the walk lives in the integrator loop and
-        this is the per-cell majorant lookup — one flat native gather
-        (a one-hot matmul at 4096 cells costs ~2x more; measured)."""
+        this is the per-cell majorant lookup — one flat native gather."""
         mz, my, mx = self.maj_grid.shape
         rel = (p - self.bounds_lo[None]) / jnp.maximum(
             self.bounds_hi[None] - self.bounds_lo[None], 1e-12

@@ -2,7 +2,7 @@
 
 Reference analogue: the 11 CPU integrators
 (/root/reference/src/pbrt/cpu/integrators.h:34-518) and the wavefront path
-integrator (wavefront/integrator.*). TPU design: an integrator is a pure
+integrator (wavefront/integrator.*). Design: an integrator is a pure
 function scene x rays -> radiance built from lax.scan over bounces with
 fixed-size carried ray state (the RayWorkItem of workitems.soa:40-50 as a
 pytree of arrays).

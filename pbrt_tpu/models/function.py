@@ -4,7 +4,7 @@ Reference analogue: FunctionIntegrator (cpu/integrators.h /
 integrators.cpp): every pixel Monte-Carlo-integrates a known 2D test
 function with the active sampler, so rendered-error images compare sampler
 quality directly (the tool behind pbrt's sampler-convergence figures).
-Batched TPU form: one jit evaluates all pixels x samples at once.
+Batched form: one jit evaluates all pixels x samples at once.
 """
 
 from __future__ import annotations

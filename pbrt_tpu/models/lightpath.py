@@ -6,7 +6,7 @@ Reference analogue: LightPathIntegrator
 emission samples and every vertex connects to the camera with a film splat —
 the adjoint half of BDPT (splat machinery here is the BDPT prerequisite).
 
-TPU design: all N light paths advance in lockstep through a lax.scan; camera
+Design: all N light paths advance in lockstep through a lax.scan; camera
 connections project vertices with PerspectiveCamera.project and accumulate
 into a flat (npix+1, 3) splat buffer with one masked scatter-add per bounce
 (invalid connections land in the trash slot npix). Measure bookkeeping:

@@ -8,13 +8,13 @@ space with Kelemen-style small/large-step mutations, splatting BOTH the
 current and the proposed state with multiple-importance weights
 (integrators.cpp:3219-3245).
 
-TPU-first redesign (vs the reference's one-thread-per-chain + mutable
+Redesign (vs the reference's one-thread-per-chain + mutable
 MLTSampler streams):
 
   * n_chains chains advance in LOCKSTEP: one lax.scan whose body evaluates
     the contribution function ONCE for all chains as a single batched
     wavefront trace — the Markov dependency is across *steps*, not across
-    chains, so the chain axis is perfectly data-parallel and MXU-friendly.
+    chains, so the chain axis is perfectly data-parallel.
   * The mutable lazily-evolved MLTSampler (samplers.h:910) becomes a dense
     (n_chains, D, 2) primary-sample tensor mutated EVERY step (the lazy
     per-dimension replay exists only to save scalar work on CPUs; a dense

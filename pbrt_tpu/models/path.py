@@ -60,10 +60,9 @@ class PathIntegrator:
     # per-material kernel-specialization tier (surfscatter.cpp:39-58).
     # Bit-identical results; pays an argsort + gather/scatter per bounce to
     # stop charging every lane for every material family present.
-    # Measured break-even (scripts/measure_sorted_shading.py, v5e, round 5):
-    # diffuse/conductor/dielectric mix 0.55x (sort tax loses), +coated
-    # families 2.51x (wins). "auto" enables it exactly when the scene
-    # carries an expensive family (coated/hair/measured/subsurface).
+    # "auto" enables it exactly when the scene carries an expensive family
+    # (coated/hair/measured/subsurface); scripts/measure_sorted_shading.py
+    # measures the break-even on the card.
     sorted_shading: object = static_field(default="auto")
     sort_tile: int = static_field(default=8192)
     # Path-replay backprop (see trace_with_stats docstring): reverse-mode
@@ -71,9 +70,8 @@ class PathIntegrator:
     # through the traversal scan. Same detached-geometry gradients, ~one
     # traversal's cost for the whole backward pass.
     replay_grad: bool = static_field(default=True)
-    # Rematerialize the replay scan body in its backward pass: measured
-    # faster on the TPU backend (residual stores dominate the recompute)
-    # and keeps backward memory O(carry). "full" | "dots" | "none".
+    # Rematerialize the replay scan body in its backward pass: keeps
+    # backward memory O(carry). "full" | "dots" | "none".
     replay_remat: str = static_field(default="full")
     # "remat": single-pass variant of path replay — plain AD over the fused
     # trace with traversal outputs saved by name (save_only_these_names), so

@@ -7,7 +7,7 @@ traced with its own camera rays so wavelength-dependent optics (lens/eye
 dispersion) produce true longitudinal/lateral chromatic aberration, and the
 film accumulates per-band spectral radiance.
 
-TPU design: bands are a python loop around the jitted per-band render (one
+Design: bands are a python loop around the jitted per-band render (one
 compile; band data are traced arguments), each band restricting
 hero-wavelength sampling to its sub-range and regenerating camera rays via a
 `camera_for_band` callback (e.g. a Navarro eye rebuilt at the band's center

@@ -11,7 +11,7 @@ Zwicker style). Both passes share ONE hero-wavelength sample per iteration
 (integrators.cpp:3346-3349) so photon flux and visible-point throughput live
 in the same spectral basis.
 
-TPU-first redesign of the photon->visible-point range query: the reference
+Redesign of the photon->visible-point range query: the reference
 scatters visible points into a hash grid of atomic linked lists
 (integrators.cpp:3477-3536) and walks pointers per photon. Here the grid is a
 *sorted dense table*: each visible point emits up to 8 (cell-hash, pixel)
@@ -20,7 +20,7 @@ box spans <= 2 cells per axis), the table is argsorted by hash, and each
 photon finds its cell's entry range with two binary searches and scans a
 bounded K candidates — branch-free, fixed-shape, scatter-adds for Phi/M.
 Linked lists and atomics become one sort + segmented lookups, which is the
-canonical GPU/TPU formulation of a spatial hash.
+canonical data-parallel formulation of a spatial hash.
 
 Known divergences from the reference (documented, not accidental):
   * Visible points are recorded at ANY non-delta vertex (the reference keeps

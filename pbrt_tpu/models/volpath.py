@@ -2,7 +2,7 @@
 
 Reference analogue: VolPathIntegrator
 (/root/reference/src/pbrt/cpu/integrators.cpp:953-1250) and the SampleT_maj
-majorant walk (media.h:734-800). TPU design: the per-ray recursive majorant
+majorant walk (media.h:734-800). Design: the per-ray recursive majorant
 walk becomes a masked lax.while_loop over the whole ray batch with a static
 step cap; tentative collisions classify into {absorb, real-scatter, null} by
 hero-wavelength probabilities, with per-wavelength reweighting keeping all

@@ -1,8 +1,8 @@
 // Native accel-build stage: Morton codes + stable LSD radix sort over
 // triangle centroids. Mirrors the reference's C++ HLBVH build front half
 // (/root/reference/src/pbrt/cpu/aggregates.cpp:389-505 — MortonPrimitive
-// computation + RadixSort), which feeds both this repo's Morton-cluster
-// accel (ops/cluster.py) and the implicit-tree BVH (accel/bvh.py).
+// computation + RadixSort), which feeds both this repo's candidate-sweep
+// accel (ops/sweep.py) and the implicit-tree BVH (accel/bvh.py).
 //
 // Exported C ABI (ctypes):
 //   morton_order(cent, n, order_out)

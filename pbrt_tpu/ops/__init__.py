@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the renderer's hot paths."""
+"""Pallas kernels (Triton on the GPU) for the renderer's hot paths."""

@@ -2,9 +2,9 @@
 
 The volumetric delta-tracking / ratio-tracking walks (models/volpath.py) are
 masked lockstep loops: every iteration pays the full ray batch even though
-the live set decays fast (measured on the cloud bench: 45% of rays enter the
-medium, ~6% still walking after 28 steps, 0 by 48 — an ~8x lockstep waste
-at a 64-step cap). This is the TPU equivalent of the reference's wavefront
+the live set decays fast (on the cloud scene 45% of rays enter the medium,
+~6% still walking after 28 steps, 0 by 48 — an ~8x lockstep waste at a
+64-step cap). This is the batched equivalent of the reference's wavefront
 queue compaction (/root/reference/src/pbrt/wavefront/workqueue.h: dead lanes
 are simply not enqueued for the next kernel).
 

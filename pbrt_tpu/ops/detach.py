@@ -5,11 +5,11 @@ Visibility is discrete: the renderer's documented differentiation stance
 shading, emission and transmittance at FIXED hit points, while geometric /
 discrete events are detached — matching differentiable-rendering practice
 when silhouette terms are not needed. The Pallas traversal kernels
-(ops/smallscene.py, ops/cluster.py, ops/pairs.py) have no autodiff rules
-at all, so without this wrapper reverse-mode over a TPU render fails
-outright; with it, `jax.grad` of a full render works on every accelerator
-path and produces exactly the detached-geometry gradients the dense jnp
-path produces.
+(ops/smallscene.py, ops/sweep.py) have no autodiff rules at all, so
+without this wrapper reverse-mode over a kernel render fails outright;
+with it, `jax.grad` of a full render works on every accelerator path and
+produces exactly the detached-geometry gradients the dense jnp path
+produces.
 
 Reference analogue: the reference has no gradient system at all; this is
 green-field per SURVEY.md section 5.8.
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 def detached_query(impl):
     """Wrap impl(accel, o, d, tmax, **static_kwargs) with a custom VJP
     returning zero cotangents for every input. Static keyword arguments
-    (any_hit, interpret, defer_attrs, ...) pass through as hashable aux."""
+    (any_hit, interpret, block sizes, ...) pass through as hashable aux."""
 
     @functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
     def call(accel, o, d, tmax, static_kv):

@@ -1,21 +1,17 @@
-"""Pallas brute-force intersector for small scenes (<= ~1k triangles).
+"""Pallas (Triton) brute-force intersector for small scenes.
 
-For scenes under the cluster-accel threshold the round-1 design used a pure
-XLA lane-blocked tester (accel/dense.py), but XLA materializes the (N, 128)
-intermediates through HBM — measured ~11 ms per closest-hit at 1M rays for a
-36-triangle Cornell box, ~10x above the VPU flops bound. This kernel keeps a
-ray tile resident in VMEM and walks the triangle table with SCALAR
-broadcasts (one fori_loop row per triangle, all components read as scalars
-with static column indices — the pattern this backend's Mosaic lowers
-cleanly), so the whole Moller-Trumbore chain is register-resident: zero HBM
-round trips per triangle.
+One program holds a block of rays in registers (one or two per thread) and
+walks the packed triangle table in global memory. Every thread reads the
+same row, so each read is a broadcast through L1, and the Moller-Trumbore
+chain and the running best hit (t, prim, u, v, normal, mat, light) never
+leave registers: every hit attribute is selected in the kernel, so the
+closest-hit assembly needs no gathers.
 
-Like ops/cluster.py, every hit attribute (u, v, geometric normal, material
-and light ids) is selected IN the kernel via the running-best compare, so
-closest-hit assembly needs no XLA gathers.
+The plain XLA alternative (accel/dense.py) tests (N, block) component
+arrays and materialises them in device memory.
 
 Reference analogue: the role of the flat no-BVH fallback aggregate
-(cpu/aggregates.cpp exhaustive primitive loop), engineered for the VPU.
+(cpu/aggregates.cpp exhaustive primitive loop).
 """
 
 from __future__ import annotations
@@ -26,23 +22,21 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..core.pytree import pytree, static_field
 
-_TILE = 8192  # rays per kernel invocation, laid out (8, _TILE // 8)
-_BIG = 3e38
+# Chosen on an H100 (tools/profile_accel.py --part tune).
+BLOCK = 256  # rays per program
+NUM_WARPS = 4
+_UNROLL_MAX = 64  # triangle tables up to this size are walked unrolled
 
 
 @pytree
 class SmallTriAccel:
     # Packed rows, one per triangle: columns
     # 0:3 v0 | 3:6 e1 | 6:9 e2 | 9:12 unit geometric normal |
-    # 12 pid+1 | 13 mat+1 | 14 light+1 | 15 pad. The table lives in SMEM:
-    # scalar-memory reads broadcast to vector registers for free, whereas
-    # VMEM scalar extraction measured ~15 us per read on this backend
-    # (30 ms of pure overhead per 1M-ray query). Pad rows have e1=e2=0 so
-    # the determinant test rejects them.
+    # 12 pid+1 | 13 mat+1 | 14 light+1 | 15 pad.
     table: jnp.ndarray  # (T, 16) float32
     n_tris: int = static_field(default=0)
 
@@ -75,9 +69,9 @@ def _kernel(tri_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
             t_out, prim_out, u_out, v_out, n0_out, n1_out, n2_out,
             mat_out, light_out, *, n_tris: int, any_hit: bool):
     eps = 1e-12
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]  # (8, _TILE // 8)
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-    tmax = tmax_ref[:]
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]  # (BLOCK,)
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
+    tmax = tmax_ref[...]
     zero = jnp.zeros_like(tmax)
 
     def body(c, carry):
@@ -131,69 +125,69 @@ def _kernel(tri_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
         return (tb, pb, ub, vb, nxb, nyb, nzb, mb, lb)
 
     init = (tmax, zero, zero, zero, zero, zero, zero, zero, zero)
-    if n_tris <= 128:
-        # Static unroll: every triangle component becomes a hoistable
-        # scalar constant read; no loop-carried serialization.
+    if n_tris <= _UNROLL_MAX:
+        # Static unroll: triangle reads get constant addresses and the
+        # compiler can hoist them ahead of the arithmetic.
         out = init
         for c in range(n_tris):
             out = body(c, out)
     else:
         out = jax.lax.fori_loop(0, n_tris, body, init)
-    t_out[:] = out[0]
-    prim_out[:] = out[1]
-    u_out[:] = out[2]
-    v_out[:] = out[3]
-    n0_out[:] = out[4]
-    n1_out[:] = out[5]
-    n2_out[:] = out[6]
-    mat_out[:] = out[7]
-    light_out[:] = out[8]
+    t_out[...] = out[0]
+    prim_out[...] = out[1]
+    u_out[...] = out[2]
+    v_out[...] = out[3]
+    n0_out[...] = out[4]
+    n1_out[...] = out[5]
+    n2_out[...] = out[6]
+    mat_out[...] = out[7]
+    light_out[...] = out[8]
 
 
-@functools.partial(jax.jit, static_argnames=("any_hit", "interpret"))
+@functools.partial(
+    jax.jit, static_argnames=("any_hit", "interpret", "block", "num_warps")
+)
 def _smallscene_intersect_impl(accel: SmallTriAccel, o, d, tmax,
-                         any_hit: bool = False, interpret: bool = False):
-    """Same contract as ops.cluster.cluster_intersect."""
+                               any_hit: bool = False, interpret: bool = False,
+                               block: int = BLOCK, num_warps: int = NUM_WARPS):
+    """Closest- or any-hit query of every ray against every triangle.
+
+    Returns a dict with per-ray 't' (inf = miss) and 'prim' (-1 = miss);
+    closest-hit mode adds 'u', 'v', 'n' (geometric normal), 'mat' and
+    'light' (-1 = none)."""
     n = o.shape[0]
-    pad = (-n) % _TILE
+    pad = (-n) % block
     npad = n + pad
-    sub = npad // 8
 
     def comp(x, fill=0.0):
-        # Contiguous (8, S) view — NO sublane interleave: ray order inside
-        # the kernel is irrelevant, and this backend executes the
-        # (N/8, 8) -> (8, N/8) transpose pathologically slowly (~2 ms per
-        # 4 MB operand; 16 operands dwarfed the kernel itself).
-        x = jnp.pad(x, (0, pad), constant_values=fill)
-        return x.reshape(8, npad // 8)
+        return jnp.pad(x, (0, pad), constant_values=fill)
 
     ox, oy, oz = comp(o[:, 0]), comp(o[:, 1]), comp(o[:, 2])
     dx, dy, dz = comp(d[:, 0], 1.0), comp(d[:, 1], 1.0), comp(d[:, 2], 1.0)
     tm = comp(tmax, -1.0)
 
-    grid = npad // _TILE
-    ray_spec = pl.BlockSpec(
-        (8, _TILE // 8), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    full = pl.BlockSpec(memory_space=pltpu.SMEM)
+    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    table_spec = pl.BlockSpec(accel.table.shape, lambda i: (0, 0))
     kernel = functools.partial(
         _kernel, n_tris=accel.n_tris, any_hit=any_hit
     )
     outs = pl.pallas_call(
         kernel,
-        grid=(grid,),
-        in_specs=[full] + [ray_spec] * 7,
+        grid=(npad // block,),
+        in_specs=[table_spec] + [ray_spec] * 7,
         out_specs=[ray_spec] * 9,
         out_shape=[
-            jax.ShapeDtypeStruct((8, sub), jnp.float32) for _ in range(9)
+            jax.ShapeDtypeStruct((npad,), jnp.float32) for _ in range(9)
         ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=num_warps, num_stages=1
+        ),
         interpret=interpret,
+        name="smallscene_intersect",
     )(accel.table, ox, oy, oz, dx, dy, dz, tm)
 
-    def uncomp(x):
-        return x.reshape(npad)[:n]
-
-    t, prim_f, u, v, n0, n1, n2, matf, lightf = (uncomp(x) for x in outs)
+    t, prim_f, u, v, n0, n1, n2, matf, lightf = (x[:n] for x in outs)
     miss = prim_f <= 0.0
     prim = jnp.where(miss, -1, prim_f.astype(jnp.int32) - 1)
     t = jnp.where(miss, jnp.inf, t)

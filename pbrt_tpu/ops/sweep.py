@@ -1,27 +1,23 @@
 """Candidate-sweep ray traversal: XLA-side per-tile candidate culling +
-t-ordered Pallas sweep with early termination. Supports object instancing.
+t-ordered Pallas (Triton) sweep with early termination. Supports object
+instancing.
 
-The round-4 cluster kernel (ops/cluster.py) walks EVERY super/cluster
-serially per ray tile, paying a scalar slab+cond gate per cluster even for
-misses (~1-2 us each on the TPU scalar core). On a 956-cluster mesh that
-gate walk alone costs ~1 ms/tile — the measured 0.4 Mrays/s killeroo
-ceiling. This redesign moves the culling OUT of the kernel:
-
-  1. CANDIDATES (XLA, vectorized): each 1024-ray tile is abstracted to an
+  1. CANDIDATES (XLA, vectorized): each TILE-ray tile is abstracted to an
      interval bundle (origin box O, direction box D, max-t). For every
      (tile, cluster-entry) pair, interval arithmetic yields the feasible
      ray-parameter window [t_lo, t_hi] in which ANY ray of the bundle can
      touch the entry's world AABB (empty window = impossible). This is a
-     dense (T, E) computation — tens of MFLOPs, microseconds on the VPU —
-     and exactly the kind of work XLA is good at and the scalar core is
-     not. Entries are argsorted per tile by conservative entry t_lo.
-  2. SWEEP (Pallas): per tile, a single while_loop walks ONLY the
-     candidate entries, nearest-first, and stops as soon as the next
-     entry's t_lo exceeds the tile's worst live t_best (the tile-level
+     dense (T, E) computation, and entries are argsorted per tile by
+     conservative entry t_lo.
+  2. SWEEP (Pallas through Triton): one program per ray tile keeps its rays
+     and their running best hit in registers and walks ONLY its candidate
+     entries, nearest-first, with a while loop that stops as soon as the
+     next entry's t_lo exceeds the tile's worst live t_best (the tile-level
      form of BVH front-to-back early termination), or every lane is
-     occluded (any-hit mode). Per entry: one per-ray slab mask, 64-ray
-     blocks gated by lax.cond, (8 rays x 128 tris) Moller-Trumbore
-     sub-groups — the proven micro-structure of ops/cluster.py.
+     occluded (any-hit mode). Per entry: a per-ray slab test against the
+     cluster box gates the whole tile; a tile with a live ray loads the
+     cluster's 128 triangles from global memory in (TILE x tri_chunk)
+     Moller-Trumbore sub-blocks.
 
   Instancing: an entry is a (cluster, instance) pair. Prototype triangles
   and object-space cluster AABBs are stored ONCE; per entry the kernel
@@ -30,7 +26,7 @@ ceiling. This redesign moves the culling OUT of the kernel:
   so object-space t == world-space t and the shared t_best prune stays
   valid across instances). Memory is O(unique geometry) + O(instances).
   Reference analogue: TransformedPrimitive / per-instance GAS
-  (/root/reference/src/pbrt/cpu/primitive.h:86-119, scene.cpp:1352-1557).
+  (cpu/primitive.h:86-119, scene.cpp:1352-1557).
 
 Attributes are always deferred: the kernel returns (t, prim, inst); the
 caller resolves u/v/normal/material in one batched gather
@@ -45,16 +41,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..core.pytree import pytree, static_field
 
-_CLUSTER = 128  # triangles per cluster (lane width)
-_TILE = 1024  # rays per kernel tile
-_SUB = _TILE // 8  # ray sub-groups of 8 (sublane width)
-_BLK = 8  # sub-groups per dense-test cond block (64 rays)
+_CLUSTER = 128  # triangles per cluster
+# Tile, sub-block and warp count chosen on an H100
+# (tools/profile_accel.py --part tune).
+TILE = 64  # rays per candidate tile == rays per program
+TRI_CHUNK = 32  # triangles per (rays x triangles) sub-block
+NUM_WARPS = 4
 _BIG = 3e38
-_INF = jnp.inf
 
 
 @pytree
@@ -248,26 +245,25 @@ def build_sweep(
 
 
 @jax.named_scope("sweep/candidates")
-def _candidates(accel: SweepAccel, o, d, tmax, n_tiles: int):
+def _candidates(accel: SweepAccel, o, d, tmax, n_tiles: int, tile: int):
     """Per-tile t-sorted candidate entries.
 
-    o, d, tmax are padded to n_tiles * _TILE rays (pad lanes tmax=-1).
+    o, d, tmax are padded to n_tiles * tile rays (pad lanes tmax=-1).
     Returns (cand_cluster (T, E) i32, cand_inst (T, E) i32,
     enter_t (T, E) f32 ascending with +inf for non-candidates,
-    count (T, 1) i32).
+    count (T,) i32).
     """
-    e = accel.n_entries
     live = (tmax > 0.0)[:, None]  # (N, 1)
     big = jnp.float32(_BIG)
-    o_t = o.reshape(n_tiles, _TILE, 3)
-    d_t = d.reshape(n_tiles, _TILE, 3)
-    lv = live.reshape(n_tiles, _TILE, 1)
+    o_t = o.reshape(n_tiles, tile, 3)
+    d_t = d.reshape(n_tiles, tile, 3)
+    lv = live.reshape(n_tiles, tile, 1)
     olo = jnp.min(jnp.where(lv, o_t, big), axis=1)  # (T, 3)
     ohi = jnp.max(jnp.where(lv, o_t, -big), axis=1)
     dlo = jnp.min(jnp.where(lv, d_t, big), axis=1)
     dhi = jnp.max(jnp.where(lv, d_t, -big), axis=1)
     thi_tile = jnp.max(
-        jnp.where(lv[..., 0], tmax.reshape(n_tiles, _TILE), 0.0), axis=1
+        jnp.where(lv[..., 0], tmax.reshape(n_tiles, tile), 0.0), axis=1
     )  # (T,)
 
     blo = accel.wboxes[:, 0:3]  # (E, 3)
@@ -301,15 +297,15 @@ def _candidates(accel: SweepAccel, o, d, tmax, n_tiles: int):
     enter_t = jnp.take_along_axis(key, order, axis=1)
     cand_c = accel.ecluster[order]
     cand_i = accel.einst[order]
-    count = jnp.sum(feasible, axis=1, dtype=jnp.int32)[:, None]
+    count = jnp.sum(feasible, axis=1, dtype=jnp.int32)
     return cand_c, cand_i, enter_t, count
 
 
 def _sweep_kernel(
-    count_ref,  # (8, 1) int32 (row i%8 = this tile's candidate count)
-    candc_ref,  # (8, E) int32 candidate cluster rows (t-sorted)
-    candi_ref,  # (8, E) int32 candidate instance ids
-    entert_ref,  # (8, E) f32 conservative entry t (ascending)
+    count_ref,  # (T,) int32 candidate count per tile
+    candc_ref,  # (T, E) int32 candidate cluster rows (t-sorted)
+    candi_ref,  # (T, E) int32 candidate instance ids
+    entert_ref,  # (T, E) f32 conservative entry t (ascending)
     boxes_ref,  # (C, 8) object-space cluster AABBs
     w2o_ref,  # (I, 12) world->object affines
     v0x_ref, v0y_ref, v0z_ref,
@@ -321,35 +317,19 @@ def _sweep_kernel(
     n_entries: int,
     any_hit: bool,
     instanced: bool,
+    tri_chunk: int,
 ):
     eps = 1e-12
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]  # (8, 128) sublane-major
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-    tmax = tmax_ref[:]
-    # Candidate rows are delivered in blocks of 8 tiles (Mosaic requires
-    # sublane-divisible block shapes); this program's row within the block:
-    row = jax.lax.rem(pl.program_id(0), 8)
-    cnt = count_ref[row, 0]
-    n_blocks = _SUB // _BLK
-    # Dynamic LANE indexing is not lowerable on TPU (only the sublane dim
-    # may be dynamic): read this tile's candidate rows as (1, E) vectors
-    # and select entry k by masked reduction — a handful of VPU ops per
-    # while iteration, far below the per-candidate MT work.
-    cc_row = candc_ref[pl.ds(row, 1), :]  # (1, E) int32
-    ci_row = candi_ref[pl.ds(row, 1), :]
-    et_row = entert_ref[pl.ds(row, 1), :]
-    lane = jax.lax.broadcasted_iota(jnp.int32, cc_row.shape, 1)
-
-    def sel_i(vec, k):
-        return jnp.sum(jnp.where(lane == k, vec, 0))
-
-    def sel_f(vec, k):
-        return jnp.sum(jnp.where(lane == k, vec, 0.0))
+    tile = pl.program_id(0)
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]  # (tile,)
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
+    tmax = tmax_ref[...]
+    cnt = count_ref[tile]
 
     def entry_body(k, t_best, prim, inst):
-        c = sel_i(cc_row, k)
+        c = candc_ref[tile, k]
         if instanced:
-            i = sel_i(ci_row, k)
+            i = candi_ref[tile, k]
             a00 = w2o_ref[i, 0]
             a01 = w2o_ref[i, 1]
             a02 = w2o_ref[i, 2]
@@ -379,20 +359,15 @@ def _sweep_kernel(
         inv_dy = 1.0 / jnp.where(jnp.abs(ldy) < eps, eps, ldy)
         inv_dz = 1.0 / jnp.where(jnp.abs(ldz) < eps, eps, ldz)
 
-        # Per-ray slab mask vs the OBJECT-space cluster box (rays already
-        # in object space), including the closer-hit prune.
-        blox = boxes_ref[c, 0]
-        bloy = boxes_ref[c, 1]
-        bloz = boxes_ref[c, 2]
-        bhix = boxes_ref[c, 3]
-        bhiy = boxes_ref[c, 4]
-        bhiz = boxes_ref[c, 5]
-        tx0 = (blox - lox) * inv_dx
-        tx1 = (bhix - lox) * inv_dx
-        ty0 = (bloy - loy) * inv_dy
-        ty1 = (bhiy - loy) * inv_dy
-        tz0 = (bloz - loz) * inv_dz
-        tz1 = (bhiz - loz) * inv_dz
+        # Per-ray slab test vs the OBJECT-space cluster box (rays already
+        # in object space), including the closer-hit prune. The tile tests
+        # the cluster's triangles only if some ray can reach the box.
+        tx0 = (boxes_ref[c, 0] - lox) * inv_dx
+        tx1 = (boxes_ref[c, 3] - lox) * inv_dx
+        ty0 = (boxes_ref[c, 1] - loy) * inv_dy
+        ty1 = (boxes_ref[c, 4] - loy) * inv_dy
+        tz0 = (boxes_ref[c, 2] - loz) * inv_dz
+        tz1 = (boxes_ref[c, 5] - loz) * inv_dz
         tmin = jnp.maximum(
             jnp.maximum(jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)),
             jnp.maximum(jnp.minimum(tz0, tz1), 0.0),
@@ -402,27 +377,25 @@ def _sweep_kernel(
             jnp.maximum(tz0, tz1),
         )
         rayhit = (tmx >= tmin) & (tmin < t_best)
-        bm = jnp.max(rayhit.astype(jnp.float32), axis=0, keepdims=True)
+        live = jnp.max(rayhit.astype(jnp.int32)) > 0
 
-        v0xr = v0x_ref[pl.ds(c, 1), :]  # (1, 128)
-        v0yr = v0y_ref[pl.ds(c, 1), :]
-        v0zr = v0z_ref[pl.ds(c, 1), :]
-        e1xr = e1x_ref[pl.ds(c, 1), :]
-        e1yr = e1y_ref[pl.ds(c, 1), :]
-        e1zr = e1z_ref[pl.ds(c, 1), :]
-        e2xr = e2x_ref[pl.ds(c, 1), :]
-        e2yr = e2y_ref[pl.ds(c, 1), :]
-        e2zr = e2z_ref[pl.ds(c, 1), :]
-        pidr = pid_ref[pl.ds(c, 1), :]
+        # (tile, 1) ray columns against (1, tri_chunk) triangle rows.
+        oxg, oyg, ozg = lox[:, None], loy[:, None], loz[:, None]
+        dxg, dyg, dzg = ldx[:, None], ldy[:, None], ldz[:, None]
 
-        def sub_group(rg, t_best, prim, inst):
-            """(8 rays x 128 tris) Moller-Trumbore -> (8, 1) updates."""
-            oxg = lox[:, rg : rg + 1]
-            oyg = loy[:, rg : rg + 1]
-            ozg = loz[:, rg : rg + 1]
-            dxg = ldx[:, rg : rg + 1]
-            dyg = ldy[:, rg : rg + 1]
-            dzg = ldz[:, rg : rg + 1]
+        def chunk(j, carry):
+            t_best, prim, inst = carry
+            sl = pl.ds(j * tri_chunk, tri_chunk)
+            v0xr = v0x_ref[c, sl][None, :]
+            v0yr = v0y_ref[c, sl][None, :]
+            v0zr = v0z_ref[c, sl][None, :]
+            e1xr = e1x_ref[c, sl][None, :]
+            e1yr = e1y_ref[c, sl][None, :]
+            e1zr = e1z_ref[c, sl][None, :]
+            e2xr = e2x_ref[c, sl][None, :]
+            e2yr = e2y_ref[c, sl][None, :]
+            e2zr = e2z_ref[c, sl][None, :]
+            pidr = pid_ref[c, sl][None, :]
             px = dyg * e2zr - dzg * e2yr
             py = dzg * e2xr - dxg * e2zr
             pz = dxg * e2yr - dyg * e2xr
@@ -437,7 +410,7 @@ def _sweep_kernel(
             qz = tvx * e1yr - tvy * e1xr
             vk = (dxg * qx + dyg * qy + dzg * qz) * inv_det
             tk = (e2xr * qx + e2yr * qy + e2zr * qz) * inv_det
-            tb = t_best[:, rg : rg + 1]
+            tb = t_best[:, None]
             hit = (
                 (jnp.abs(det) > eps)
                 & (uk >= 0.0)
@@ -447,62 +420,29 @@ def _sweep_kernel(
                 & (tk < tb)
             )
             if any_hit:
-                got = jnp.any(hit, axis=1, keepdims=True)  # (8, 1)
-                t_col = jnp.where(got, 0.0, tb)
-                p_col = jnp.where(
-                    got,
-                    jnp.max(jnp.where(hit, pidr, 0.0), axis=1,
-                            keepdims=True),
-                    prim[:, rg : rg + 1],
+                p_sel = jnp.max(jnp.where(hit, pidr, 0.0), axis=1)
+                got = p_sel > 0.0
+                return (
+                    jnp.where(got, 0.0, t_best),
+                    jnp.where(got, p_sel, prim),
+                    jnp.where(got, inst_f, inst),
                 )
-                i_col = jnp.where(got, inst_f, inst[:, rg : rg + 1])
-                return t_col, p_col, i_col
             tkh = jnp.where(hit, tk, _BIG)
-            tmin_new = jnp.min(tkh, axis=1, keepdims=True)  # (8, 1)
-            better = tmin_new < tb
-            eq = hit & (tkh == tmin_new)
-            pid_sel = jnp.max(
-                jnp.where(eq, pidr, 0.0), axis=1, keepdims=True
+            tmin_new = jnp.min(tkh, axis=1)
+            better = tmin_new < t_best
+            eq = hit & (tkh == tmin_new[:, None])
+            pid_sel = jnp.max(jnp.where(eq, pidr, 0.0), axis=1)
+            return (
+                jnp.where(better, tmin_new, t_best),
+                jnp.where(better, pid_sel, prim),
+                jnp.where(better, inst_f, inst),
             )
-            t_col = jnp.where(better, tmin_new, tb)
-            p_col = jnp.where(better, pid_sel, prim[:, rg : rg + 1])
-            i_col = jnp.where(better, inst_f, inst[:, rg : rg + 1])
-            return t_col, p_col, i_col
 
-        t_blocks, p_blocks, i_blocks = [], [], []
-        for bk in range(n_blocks):
-            lo_, hi_ = bk * _BLK, (bk + 1) * _BLK
-            pred = jnp.max(bm[:, lo_:hi_]) > 0.0
+        def test(carry):
+            return jax.lax.fori_loop(0, _CLUSTER // tri_chunk, chunk, carry)
 
-            def hit_fn(_, lo_=lo_, hi_=hi_):
-                tc, pc, ic = [], [], []
-                for rg in range(lo_, hi_):
-                    t_col, p_col, i_col = sub_group(rg, t_best, prim, inst)
-                    tc.append(t_col)
-                    pc.append(p_col)
-                    ic.append(i_col)
-                return (
-                    jnp.concatenate(tc, axis=1),
-                    jnp.concatenate(pc, axis=1),
-                    jnp.concatenate(ic, axis=1),
-                )
-
-            def miss_fn(_, lo_=lo_, hi_=hi_):
-                return (
-                    t_best[:, lo_:hi_],
-                    prim[:, lo_:hi_],
-                    inst[:, lo_:hi_],
-                )
-
-            tb8, pb8, ib8 = jax.lax.cond(pred, hit_fn, miss_fn, None)
-            t_blocks.append(tb8)
-            p_blocks.append(pb8)
-            i_blocks.append(ib8)
-        return (
-            jnp.concatenate(t_blocks, axis=1),
-            jnp.concatenate(p_blocks, axis=1),
-            jnp.concatenate(i_blocks, axis=1),
-        )
+        return jax.lax.cond(live, test, lambda carry: carry,
+                            (t_best, prim, inst))
 
     def cond(state):
         k, t_best, prim, inst = state
@@ -513,102 +453,83 @@ def _sweep_kernel(
         # mode occluded lanes collapse to 0, so the sweep stops when all
         # live lanes are occluded.
         kc = jnp.minimum(k, n_entries - 1)
-        t_worst = jnp.max(t_best)
-        return (k < cnt) & (sel_f(et_row, kc) < t_worst)
+        return (k < cnt) & (entert_ref[tile, kc] < jnp.max(t_best))
 
     def body(state):
         k, t_best, prim, inst = state
         t_best, prim, inst = entry_body(k, t_best, prim, inst)
         return k + 1, t_best, prim, inst
 
-    t0 = tmax
-    p0 = jnp.zeros_like(tmax)
-    i0 = jnp.zeros_like(tmax)
+    zero = jnp.zeros_like(tmax)
     _, t_best, prim, inst = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), t0, p0, i0)
+        cond, body, (jnp.int32(0), tmax, zero, zero)
     )
-    t_out[:] = t_best
-    prim_out[:] = prim
-    inst_out[:] = inst
+    t_out[...] = t_best
+    prim_out[...] = prim
+    inst_out[...] = inst
 
 
-@functools.partial(jax.jit, static_argnames=("any_hit", "interpret"))
+@functools.partial(
+    jax.jit,
+    static_argnames=("any_hit", "interpret", "tile", "tri_chunk",
+                     "num_warps"),
+)
 def _sweep_intersect_impl(accel: SweepAccel, o, d, tmax,
-                          any_hit: bool = False, interpret: bool = False):
+                          any_hit: bool = False, interpret: bool = False,
+                          tile: int = TILE, tri_chunk: int = TRI_CHUNK,
+                          num_warps: int = NUM_WARPS):
     """Hit query over sorted rays. Returns dict with per-ray 't'
     (inf = miss), 'prim' (int32 global triangle id, -1 = miss), 'inst'
     (int32 instance id, -1 = miss)."""
     n = o.shape[0]
-    pad = (-n) % _TILE
+    pad = (-n) % tile
     npad = n + pad
-    n_tiles = npad // _TILE
+    n_tiles = npad // tile
 
     o_p = jnp.pad(o, ((0, pad), (0, 0)))
     d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
     tm_p = jnp.pad(tmax, (0, pad), constant_values=-1.0)
 
     cand_c, cand_i, enter_t, count = _candidates(
-        accel, o_p, d_p, tm_p, n_tiles
+        accel, o_p, d_p, tm_p, n_tiles, tile
     )
 
-    def comp(x, fill=0.0):
-        # ray j -> (j % 8, j // 8) sublane-major tile layout
-        return x.reshape(npad // 8, 8).T.reshape(8, npad // 8)
+    def full(x):
+        return pl.BlockSpec(x.shape, lambda i: (0,) * x.ndim)
 
-    ox, oy, oz = comp(o_p[:, 0]), comp(o_p[:, 1]), comp(o_p[:, 2])
-    dx, dy, dz = comp(d_p[:, 0]), comp(d_p[:, 1]), comp(d_p[:, 2])
-    tm = comp(tm_p)
-
-    e = accel.n_entries
-    # Pad the tile axis of the candidate tables to a multiple of 8 so the
-    # (8, E) row blocks satisfy Mosaic's sublane divisibility.
-    tpad8 = (-n_tiles) % 8
-    if tpad8:
-        cand_c = jnp.pad(cand_c, ((0, tpad8), (0, 0)))
-        cand_i = jnp.pad(cand_i, ((0, tpad8), (0, 0)))
-        enter_t = jnp.pad(enter_t, ((0, tpad8), (0, 0)))
-        count = jnp.pad(count, ((0, tpad8), (0, 0)))
-    ray_spec = pl.BlockSpec(
-        (8, _SUB), lambda i: (0, i), memory_space=pltpu.VMEM
+    ray_spec = pl.BlockSpec((tile,), lambda i: (i,))
+    tables = (
+        count, cand_c, cand_i, enter_t, accel.boxes, accel.w2o,
+        accel.v0x, accel.v0y, accel.v0z,
+        accel.e1x, accel.e1y, accel.e1z,
+        accel.e2x, accel.e2y, accel.e2z, accel.pid,
     )
-    full = pl.BlockSpec(memory_space=pltpu.VMEM)
-    row_i = pl.BlockSpec(
-        (8, e), lambda i: (i // 8, 0), memory_space=pltpu.VMEM
-    )
-    cnt_spec = pl.BlockSpec(
-        (8, 1), lambda i: (i // 8, 0), memory_space=pltpu.VMEM
-    )
-
+    rays = (o_p[:, 0], o_p[:, 1], o_p[:, 2],
+            d_p[:, 0], d_p[:, 1], d_p[:, 2], tm_p)
     kernel = functools.partial(
         _sweep_kernel,
-        n_entries=e,
+        n_entries=accel.n_entries,
         any_hit=any_hit,
         instanced=accel.instanced,
+        tri_chunk=tri_chunk,
     )
     outs = pl.pallas_call(
         kernel,
         grid=(n_tiles,),
-        in_specs=[cnt_spec, row_i, row_i, row_i] + [full] * 12
-        + [ray_spec] * 7,
+        in_specs=[full(x) for x in tables] + [ray_spec] * 7,
         out_specs=[ray_spec] * 3,
         out_shape=[
-            jax.ShapeDtypeStruct((8, npad // 8), jnp.float32)
-            for _ in range(3)
+            jax.ShapeDtypeStruct((npad,), jnp.float32) for _ in range(3)
         ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=num_warps, num_stages=1
+        ),
         interpret=interpret,
-    )(
-        count, cand_c, cand_i, enter_t,
-        accel.boxes, accel.w2o,
-        accel.v0x, accel.v0y, accel.v0z,
-        accel.e1x, accel.e1y, accel.e1z,
-        accel.e2x, accel.e2y, accel.e2z, accel.pid,
-        ox, oy, oz, dx, dy, dz, tm,
-    )
+        name="sweep_intersect",
+    )(*tables, *rays)
 
-    def uncomp(x):
-        return x.reshape(8, npad // 8).T.reshape(npad)[:n]
-
-    t, prim_f, inst_f = (uncomp(x) for x in outs)
+    t, prim_f, inst_f = (x[:n] for x in outs)
     miss = prim_f <= 0.0
     prim = jnp.where(miss, -1, prim_f.astype(jnp.int32) - 1)
     inst = jnp.where(miss, -1, inst_f.astype(jnp.int32) - 1)

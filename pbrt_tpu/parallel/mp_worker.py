@@ -3,7 +3,7 @@
 Run as ``python -m pbrt_tpu.parallel.mp_worker --coordinator ... --nprocs N
 --pid I ...`` — one OS process per simulated host, each with
 ``--local-devices`` virtual CPU devices (SURVEY.md section 4's prescribed
-no-cluster stand-in for a TPU pod). Writes this process' results to
+no-cluster stand-in for a multi-host deployment). Writes this process' results to
 ``<out>.<pid>.npz`` so the spawning test can gate bitwise determinism
 across process counts.
 """

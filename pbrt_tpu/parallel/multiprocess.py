@@ -6,9 +6,9 @@ star (BASELINE.md). One process per host calls `init_multiprocess`, after
 which `jax.devices()` spans every host's chips and the same mesh/sharding
 code used single-process (parallel/mesh.py, parallel/render.py) runs
 globally: pixels shard across hosts, the film psum and the gradient psum
-ride the ICI/DCN collectives XLA inserts.
+ride the collectives XLA inserts.
 
-Without a TPU pod this is validated exactly as SURVEY.md section 4
+Without a multi-host cluster this is validated exactly as SURVEY.md section 4
 prescribes: spawn N local processes with CPU devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=K``) and a local
 coordinator (tests/test_multiprocess.py + parallel/mp_worker.py). The film

@@ -25,19 +25,39 @@ from ..films.rgb import spectrum_to_rgb
 from ..render import camera_rays_full
 
 
+# Pixels per device per dispatch. Fixed, whatever the mesh size: every tile
+# runs the same per-device program, and the compiled program may round
+# differently at another batch shape, so a tile size that followed the
+# device count would give an image that depends on the device layout.
+TILE_PIXELS = 16384
+
+
 def render_tile_sharded(scene, camera, integrator, mesh: Mesh, spp: int = 4,
                         seed: int = 0):
-    """Pixels sharded over mesh axis 'data'. Returns (ny, nx, 3) image."""
+    """Pixels sharded over mesh axis 'data'. Returns (ny, nx, 3) image.
+
+    The image is cut into tiles of TILE_PIXELS (or the whole image, if it is
+    smaller), and each dispatch hands one tile to every device of the mesh.
+    Each device traces its tile under shard_map: the traversal kernels
+    (opaque custom calls to the partitioner) run on local rays and no data
+    crosses devices. The pixel range is padded to whole dispatches with
+    copies of the last pixel, whose results are dropped, so a tile holds the
+    same pixels on one device or many and the image is bitwise the same."""
+    from jax import shard_map
+
     nx, ny = camera.resolution
     npix = nx * ny
     n_dev = mesh.devices.size
-    assert npix % n_dev == 0
+    tile = min(TILE_PIXELS, npix)
+    per_dispatch = tile * n_dev
+    n_dispatch = -(-npix // per_dispatch)
 
-    pixel = jnp.arange(npix, dtype=jnp.int32)
-    pixel = jax.device_put(pixel, NamedSharding(mesh, P("data")))
     scene = jax.device_put(scene, NamedSharding(mesh, P()))
 
-    @jax.jit
+    @functools.partial(
+        shard_map, mesh=mesh, in_specs=(P(), P("data")),
+        out_specs=P("data"), check_vma=False,
+    )
     def run(scene, pixel):
         acc = jnp.zeros((pixel.shape[0], 3), jnp.float32)
 
@@ -51,8 +71,16 @@ def render_tile_sharded(scene, camera, integrator, mesh: Mesh, spp: int = 4,
         acc = jax.lax.fori_loop(0, spp, body, acc)
         return acc / spp
 
-    img = run(scene, pixel)
-    return img.reshape(ny, nx, 3)
+    run = jax.jit(run)
+    sharding = NamedSharding(mesh, P("data"))
+    parts = []
+    for k in range(n_dispatch):
+        pixel = jnp.minimum(
+            jnp.arange(k * per_dispatch, (k + 1) * per_dispatch,
+                       dtype=jnp.int32), npix - 1)
+        parts.append(run(scene, jax.device_put(pixel, sharding)))
+    img = parts[0] if len(parts) == 1 else jnp.concatenate(parts)
+    return img[:npix].reshape(ny, nx, 3)
 
 
 def render_spp_sharded(scene, camera, integrator, mesh: Mesh, spp: int = 8,

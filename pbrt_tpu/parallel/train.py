@@ -3,9 +3,9 @@
 The inverse-rendering "training step" of BASELINE.json: render a pixel-sharded
 image batch, compare against a target, and reverse-mode differentiate the loss
 with respect to continuous scene parameters (albedo sigmoid coefficients,
-light emission scales). Pixels are sharded over the mesh's data axis; scene
-parameters are replicated, so XLA turns the parameter gradient into a psum
-over ICI that overlaps the backward pass.
+light emission scales). Pixels are sharded over the mesh's data axis under
+shard_map and scene parameters are replicated; the loss and the parameter
+gradients are averaged across devices with pmean.
 """
 
 from __future__ import annotations
@@ -94,19 +94,35 @@ def training_step(
 ):
     """One sharded SGD step on scene parameters. Returns (loss, new_scene).
 
-    pixel/target_rgb are expected to be sharded over the mesh's data axis
-    (parallel.mesh.shard_pixels); scene is replicated. Under jit, XLA inserts
-    the gradient psum across the mesh automatically. `trainable` selects the
-    updated leaves (dotted scene paths, see render_loss_and_grad).
+    pixel/target_rgb are sharded over the mesh's data axis; scene is
+    replicated. Each device differentiates the mean loss of its own pixels
+    (shard_map: the traversal kernels run on local rays), and pmean over
+    the mesh gives the global mean loss and gradient, since shards are
+    equal. `trainable` selects the updated leaves (dotted scene paths, see
+    render_loss_and_grad).
     """
+    from jax import shard_map
+
     data_sharding = NamedSharding(mesh, P("data"))
     repl = NamedSharding(mesh, P())
 
-    @functools.partial(jax.jit, out_shardings=(repl, repl))
-    def step(scene, camera, integrator, pixel, target_rgb, sample_idx, seed):
+    @functools.partial(
+        shard_map, mesh=mesh,
+        in_specs=(P(), P(), P(), P("data"), P("data"), P(), P()),
+        out_specs=(P(), P()), check_vma=False,
+    )
+    def local_loss_and_grad(scene, camera, integrator, pixel, target_rgb,
+                            sample_idx, seed):
         loss, grads = render_loss_and_grad(
             scene, camera, integrator, pixel, target_rgb, sample_idx, seed,
             trainable=trainable,
+        )
+        return jax.lax.pmean((loss, grads), "data")
+
+    @functools.partial(jax.jit, out_shardings=(repl, repl))
+    def step(scene, camera, integrator, pixel, target_rgb, sample_idx, seed):
+        loss, grads = local_loss_and_grad(
+            scene, camera, integrator, pixel, target_rgb, sample_idx, seed
         )
         new_scene = _set_paths(
             scene,

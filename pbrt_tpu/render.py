@@ -6,7 +6,7 @@ Render() loop (wavefront/integrator.cpp:290-493). The reference parallelizes
 with tiles/queues; here one jitted function evaluates a whole *sample wave*
 (every pixel x samples_per_pass samples) as a single batched program, and a
 fori_loop runs waves so compile happens once and memory stays bounded at
-O(pixels x samples_per_pass) in-flight rays — the TPU version of the 1M-sample
+O(pixels x samples_per_pass) in-flight rays — the batched version of the 1M-sample
 in-flight cap (wavefront/integrator.cpp:227-236).
 """
 

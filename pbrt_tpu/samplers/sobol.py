@@ -9,7 +9,7 @@ Reference analogue: SobolSample / SobolSampleBits
 (/root/reference/src/pbrt/util/lowdiscrepancy.h:230-258) over
 util/sobolmatrices.cpp. The C++ walks index bits with a data-dependent loop;
 here a fixed 32-step fori_loop XOR-accumulates masked direction vectors —
-branch-free and identical for every lane, which is what the VPU wants.
+branch-free and identical for every lane.
 """
 
 from __future__ import annotations

@@ -31,63 +31,44 @@ class Scene:
     media_stack: Optional[object] = None
     # Optional texture tables (textures.TextureBuffers).
     textures: Optional[object] = None
-    # Optional triangle BVH (accel.bvh.BVH); None routes to the dense tester.
+    # At most one triangle accelerator (accel/api.py dispatch); with none,
+    # triangles go to the dense tester (accel/dense.py).
+    # Optional triangle BVH (accel.bvh.BVH), jnp per-ray-stack traversal.
     bvh: Optional[object] = None
-    # Optional Pallas cluster accelerator (ops.cluster.ClusterAccel) —
-    # preferred over `bvh` when present.
-    clusters: Optional[object] = None
     # Optional Pallas brute-force small-scene intersector
-    # (ops.smallscene.SmallTriAccel) — used below the cluster threshold.
+    # (ops.smallscene.SmallTriAccel) — used up to the size threshold.
     small: Optional[object] = None
     # Optional SAH kd-tree (accel.kdtree.KdTree) — pbrt's alternate
-    # aggregate (KdTreeAggregate); parity engine, cluster kernel is the
-    # TPU performance path.
+    # aggregate (KdTreeAggregate), kept for parity.
     kdtree: Optional[object] = None
     # Optional candidate-sweep accelerator (ops.sweep.SweepAccel) —
     # XLA-side per-tile candidate culling + t-ordered Pallas sweep; the
-    # only accelerator supporting object instancing. Preferred over
-    # `clusters` when present.
+    # only accelerator supporting object instancing.
     sweep: Optional[object] = None
     # Animated instances (accel.instances.AnimatedInstances): TRS-
     # keyframed TransformedPrimitives handled in a separate per-instance
     # pass (accel/api.py). None = no motion-blurred instances.
     anim: Optional[object] = None
 
-    def with_accel(self, threshold: int = 1024, kind: str = "auto") -> "Scene":
+    def with_accel(self, threshold: int = 512) -> "Scene":
         """Attach the triangle intersector fitting the scene size.
 
-        Up to `threshold` triangles: the Pallas brute-force VMEM kernel
-        (ops/smallscene.py — scalar-broadcast triangle walk, ~10x the XLA
-        dense tester). Above it: per-tile candidate culling + t-ordered
-        sweep kernel (ops/sweep.py; kind="sweep") or the Morton cluster
-        cull/test kernel (ops/cluster.py; kind="cluster").
-        kind="auto" honors the PBRT_TPU_ACCEL env var, defaulting to
-        sweep.
+        Up to `threshold` triangles the brute-force kernel
+        (ops/smallscene.py), above it the candidate-sweep kernel
+        (ops/sweep.py); threshold=0 attaches the sweep kernel whatever the
+        size. The default is the crossover on render passes on an H100
+        (tools/profile_accel.py --part crossover): brute force is faster at
+        512 triangles, the sweep kernel from 768 up.
         """
-        import os
-
         import numpy as np
 
-        from .ops.smallscene import build_smallscene
-
-        explicit = kind != "auto"
-        if kind == "auto":
-            kind = os.environ.get("PBRT_TPU_ACCEL", "cluster")
         if self.geom.num_triangles == 0:
             return self
-        if self.geom.num_triangles <= threshold and not explicit:
-            return self.replace(
-                small=build_smallscene(
-                    np.asarray(self.geom.tri_verts),
-                    np.asarray(self.geom.tri_mat),
-                    np.asarray(self.geom.tri_light),
-                )
-            )
-        if kind == "cluster":
-            from .ops.cluster import build_clusters
+        if self.geom.num_triangles <= threshold:
+            from .ops.smallscene import build_smallscene
 
             return self.replace(
-                clusters=build_clusters(
+                small=build_smallscene(
                     np.asarray(self.geom.tri_verts),
                     np.asarray(self.geom.tri_mat),
                     np.asarray(self.geom.tri_light),

@@ -4,7 +4,7 @@ Reference analogue: /root/reference/src/pbrt/shapes.h:1219 (Curve),
 shapes.cpp Curve::RecursiveIntersect. The reference subdivides each Bézier
 *per ray* down to a refinement depth chosen from its curvature, then runs a
 ray-space linear-segment width test at the leaves. That data-dependent
-recursion is hostile to XLA, so the TPU design hoists the subdivision to
+recursion is hostile to XLA, so the design hoists the subdivision to
 scene-build time: each curve is flattened ONCE into the number of linear
 segments its curvature bound demands (the same log4 criterion the reference
 uses to pick its recursion depth, shapes.cpp:1452-1460), and the per-ray

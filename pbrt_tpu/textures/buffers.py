@@ -8,7 +8,7 @@ CylindricalMapping, PlanarMapping; textures.h:75-180) plus Ptex per-face
 texel sets (textures.h:1003, faces loaded by io/ptex.py and indexed by the
 Interaction's per-triangle face id).
 
-TPU-first design decisions:
+Design decisions:
   * One SOA row per texture; evaluation computes EVERY family's value for
     every ray and select-chains on the kind tag — the vector analogue of
     the reference's TaggedPointer dispatch.

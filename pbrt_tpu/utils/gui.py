@@ -1,11 +1,11 @@
-"""Interactive render viewer (the reference's GUI, TPU-native form).
+"""Interactive render viewer (the reference's GUI, headless form).
 
 Reference analogue: `util/gui.h:27` — a GLFW/OpenGL window with keyboard
 camera controls, exposure adjustment, and a RESET/EXIT display-state protocol
 driven by `wavefront/integrator.cpp:444-472` (map framebuffer, refresh, reset
 accumulation when the camera moves).
 
-A TPU renderer runs headless on pod workers, so the idiomatic equivalent of a
+An accelerator renderer runs headless on remote workers, so the idiomatic equivalent of a
 GLFW window is a built-in HTTP viewer: the render loop pushes tonemapped
 frames, any browser shows them live and sends back keyboard input. The GUI
 class keeps the reference's exact interaction surface — `refresh_display()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Decide sorted_shading (VERDICT r4 #9): measure the tag-sorted material
+"""Decide sorted_shading: measure the tag-sorted material
 dispatch against masked evaluate-all on scenes of increasing material-mix
 cost, print the break-even verdict.
 
@@ -97,14 +97,14 @@ def measure(scene, camera, sorted_shading: bool, spp=32):
         return L.sum(), stats["rays"]
 
     s, r = rp(scene, jnp.int32(0))
-    float(jnp.sum(s))
+    jax.block_until_ready(s)
     n_passes = spp // k
     t0 = time.perf_counter()
     rd = None
     for p in range(n_passes):
         s, r = rp(scene, jnp.int32(p))
         rd = r if rd is None else rd + r
-    rays = float(jnp.sum(rd))
+    rays = float(jax.block_until_ready(rd))
     dt = time.perf_counter() - t0
     return rays / dt / 1e6
 
@@ -112,11 +112,9 @@ def measure(scene, camera, sorted_shading: bool, spp=32):
 def main():
     import jax
 
-    cache = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from pbrt_tpu.utils import compile_cache
+
+    compile_cache.enable()
     for tag, expensive in (("cheap-mix", False), ("expensive-mix", True)):
         scene, cam = build_mixed_scene(expensive)
         off = measure(scene, cam, False)

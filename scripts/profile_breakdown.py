@@ -2,8 +2,8 @@
 """Per-phase wall-time breakdown on the mesh bench scene (BASELINE cfg 2).
 
 Times each traversal phase separately on real rays of each coherence class
-(camera rays, diffuse bounce rays, shadow rays) so the 0.4 Mrays/s killeroo
-gap can be attributed: ray sort, cluster kernel, attribute resolution,
+(camera rays, diffuse bounce rays, shadow rays) so the killeroo traversal
+time can be attributed: ray sort, sweep kernel, attribute resolution,
 full closest(), any_hit(), and one full integrator pass.
 
 Usage:  python scripts/profile_breakdown.py [--scene killeroo|cornell]
@@ -35,12 +35,9 @@ def main():
     import jax
 
     if not args.no_cache:
-        cache = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".jax_cache",
-        )
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+        from pbrt_tpu.utils import compile_cache
+
+        compile_cache.enable()
 
     import jax.numpy as jnp
 
@@ -59,10 +56,9 @@ def main():
         scene, camera = killeroo_class_scene(resolution=(512, 512))
     t0 = time.perf_counter()
     scene = scene.with_accel()
-    if scene.clusters is not None:
-        sync(scene.clusters.boxes)
-        print(f"accel: clusters={scene.clusters.n_clusters} "
-              f"supers={scene.clusters.n_supers} "
+    if scene.sweep is not None:
+        sync(scene.sweep.boxes)
+        print(f"accel: sweep clusters={scene.sweep.n_clusters} "
               f"build={time.perf_counter() - t0:.2f}s")
 
     n = args.rays
@@ -115,16 +111,10 @@ def main():
     inf = jnp.full((nr,), jnp.inf)
 
     def cam_rays_case(o, d, tm, tag):
-        if scene.sweep is not None:
-            from pbrt_tpu.ops.sweep import sweep_intersect as _isect
+        from pbrt_tpu.ops.sweep import sweep_intersect as _isect
 
-            acc = scene.sweep
-            kw = {}
-        else:
-            from pbrt_tpu.ops.cluster import cluster_intersect as _isect
-
-            acc = scene.clusters
-            kw = {"defer_attrs": True}
+        acc = scene.sweep
+        kw = {}
 
         perm, invp = jax.jit(accel_api.ray_sort_perm)(o, d, tm)
         sync(perm)
@@ -162,7 +152,7 @@ def main():
             print(f"  {k_:32s} {v*1e3:9.2f} ms   {nr/v/1e6:8.2f} Mrays/s")
         return res
 
-    if scene.clusters is not None or scene.sweep is not None:
+    if scene.sweep is not None:
         print("== camera rays ==")
         cam_rays_case(o_c, d_c, inf, "camera")
         print("== bounce rays ==")
@@ -182,7 +172,7 @@ def main():
     print(f"render_pass compile+run: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     s_, r_ = render_pass(o_c, d_c)
-    rays = sync(r_)
+    rays = float(sync(r_))
     dt = time.perf_counter() - t0
     print(f"render_pass: {dt*1e3:.1f} ms  rays={rays:.0f}  "
           f"{rays/dt/1e6:.2f} Mrays/s")

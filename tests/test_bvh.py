@@ -70,7 +70,7 @@ def test_bvh_interaction_assembly():
     )
     scene = Scene(geom=geom, materials=mats, lights=lights)
     scene_bvh = scene.with_accel(threshold=1)
-    assert scene_bvh.clusters is not None
+    assert scene_bvh.sweep is not None
     o, d = _random_rays(1024, 2, spread=1.8)
     a = accel_api.closest(scene, o, d)
     b = accel_api.closest(scene_bvh, o, d)
@@ -87,17 +87,17 @@ def test_bvh_interaction_assembly():
     )
 
 
-def test_cluster_multi_super_matches_dense():
-    """Super-cull tier correctness at real scale: >= 8 super-clusters
-    (the production killeroo-class path exercises multi-super culling,
-    which the 1-super icosphere gates cannot reach). Closest + any-hit,
-    camera-style and shuffled rays, against the dense oracle — including
-    the deferred-attribute resolution (accel/api.resolve_tri_attrs)."""
+def test_sweep_many_clusters_matches_dense():
+    """Sweep accelerator at scale: hundreds of clusters, so the per-tile
+    candidate cull and front-to-back termination really choose among
+    entries. Closest + any-hit, camera-style and shuffled rays, against
+    the dense oracle — including the deferred-attribute resolution
+    (accel/api.resolve_tri_attrs)."""
     from pbrt_tpu.lights.buffers import LightBuffers
     from pbrt_tpu.materials.buffers import MaterialBuffers, MAT_DIFFUSE
     from pbrt_tpu.scene import Scene
 
-    # ~37k triangles -> ceil(37000/128/32) >= 9 supers.
+    # ~37k triangles -> ~290 clusters of 128.
     tris = np.concatenate(
         [torus(1.4, 0.35, 225, 80), icosphere(3, 0.6, (0, 0, 0.8))]
     )
@@ -116,7 +116,7 @@ def test_cluster_multi_super_matches_dense():
     )
     scene = Scene(geom=geom, materials=mats, lights=lights)
     sc = scene.with_accel(threshold=1)
-    assert sc.clusters is not None and sc.clusters.n_supers >= 8
+    assert sc.sweep is not None and sc.sweep.n_clusters >= 256
 
     n = 2048
     # Camera-style: common origin, coherent directions at the geometry.
@@ -172,7 +172,7 @@ def test_mesh_scene_renders():
     from pbrt_tpu.scenes.meshes import mesh_gallery_scene
 
     scene, camera = mesh_gallery_scene(resolution=(24, 24), subdiv=2)
-    assert scene.clusters is not None
+    assert scene.sweep is not None
     img = np.asarray(
         render(scene, camera, PathIntegrator(max_depth=4), spp=4,
                samples_per_pass=2)

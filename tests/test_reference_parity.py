@@ -2,13 +2,10 @@
 star: "forward allclose vs pbrt CPU").
 
 The golden images in tests/goldens/*_ref.pfm were rendered by the reference
-(scienstanford/pbrt-v4) built headless in this sandbox via
-scripts/build_reference.sh, at 4096 spp with --seed 1 (regenerate with
-scripts/make_goldens.sh). Each test parses the IDENTICAL .pbrt file through
-our parser and renders with the matching integrator, then gates on
-relative mean-brightness error, MSE, AND a per-pixel gate: both images are
-4x4 box-downsampled (averaging out residual MC noise) and the 95th
-percentile of per-cell relative error must stay under the bound.
+(scienstanford/pbrt-v4) built headless via scripts/build_reference.sh, at
+4096 spp with --seed 1 (regenerate with scripts/make_goldens.sh). The gate
+itself (case table, mean/MSE/per-pixel bounds) lives in
+pbrt_tpu/utils/parity.py, shared with chip_smoke.py.
 
 These gates caught real transport bugs when first enabled (shadow rays
 self-occluding on the sampled light's plane; dielectric eta not inverting
@@ -26,27 +23,7 @@ import pytest
 
 from pbrt_tpu.io.image import read_pfm
 from pbrt_tpu.io.parser import load_pbrt
-from pbrt_tpu.render import render
-
-GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
-
-# (scene, our spp, max relative mean error, max MSE, q95 per-pixel rel)
-CASES = [
-    # box: indirect-dominated (one-sided light shining at the ceiling);
-    # 512 spp leaves firefly variance, so the MSE bound is looser.
-    ("box", 512, 0.04, 0.035, 0.6),
-    ("spheres", 384, 0.035, 1e-4, 0.15),
-    ("spot", 256, 0.035, 5e-4, 0.15),
-    # fog: homogeneous interior medium via per-shape MediumInterface
-    # (VolPath + interface-aware shadow transmittance).
-    ("fog", 192, 0.06, 5e-5, 0.15),
-    ("conductor", 384, 0.05, 2e-3, 0.2),
-    ("dielectric", 384, 0.05, 2e-3, 0.25),
-    ("texture", 256, 0.04, 1e-3, 0.15),
-    ("imagetex", 256, 0.04, 1e-3, 0.15),
-    ("envmap", 256, 0.05, 2e-3, 0.35),
-    ("plymesh", 256, 0.04, 1e-3, 0.15),
-]
+from pbrt_tpu.utils.parity import CASES, GOLDENS, check_case, gate
 
 # Specialty-integrator cases: estimator families differ more between the
 # implementations (start-up bias, stratification), so the gates are mean +
@@ -58,47 +35,12 @@ MC_CASES = [
 ]
 
 
-def _downsample(img, f=4):
-    h, w, c = img.shape
-    return img[: h // f * f, : w // f * f].reshape(
-        h // f, f, w // f, f, c
-    ).mean(axis=(1, 3))
-
-
-def _gate(img, ref, name, rel_tol, mse_tol, q95_tol=None):
-    assert img.shape == ref.shape
-    assert np.isfinite(img).all()
-    rel = abs(img.mean() - ref.mean()) / ref.mean()
-    mse = float(np.mean((img - ref) ** 2))
-    assert rel < rel_tol, (
-        f"{name}: mean {img.mean():.4f} vs ref {ref.mean():.4f} "
-        f"(rel {rel:.3f})"
-    )
-    assert mse < mse_tol, f"{name}: MSE {mse:.6f} vs golden"
-    if q95_tol is not None:
-        a = _downsample(img)
-        b = _downsample(ref)
-        cell_rel = np.abs(a - b) / (np.abs(b) + 0.05 * ref.mean())
-        q95 = float(np.quantile(cell_rel, 0.95))
-        assert q95 < q95_tol, f"{name}: q95 per-cell rel err {q95:.3f}"
-
-
 @pytest.mark.parametrize("name,spp,rel_tol,mse_tol,q95_tol", CASES)
 def test_matches_reference_render(name, spp, rel_tol, mse_tol, q95_tol):
     golden = os.path.join(GOLDENS, f"{name}_ref.pfm")
     if not os.path.exists(golden):
         pytest.skip(f"golden {name}_ref.pfm not rendered in this sandbox")
-    scene, camera, settings = load_pbrt(
-        os.path.join(GOLDENS, f"{name}.pbrt")
-    )
-    img = np.asarray(
-        render(
-            scene, camera, settings["integrator"],
-            spp=spp, samples_per_pass=8, sampler_kind="independent",
-        )
-    )
-    ref = read_pfm(golden)
-    _gate(img, ref, name, rel_tol, mse_tol, q95_tol)
+    check_case(name)
 
 
 @pytest.mark.parametrize("name,spp,rel_tol,mse_tol", MC_CASES)
@@ -131,4 +73,4 @@ def test_matches_reference_mc(name, spp, rel_tol, mse_tol):
         pytest.fail(f"unexpected integrator {kind} for {name}")
     img = np.asarray(img)
     ref = read_pfm(golden)
-    _gate(img, ref, name, rel_tol, mse_tol)
+    gate(img, ref, name, rel_tol, mse_tol)

@@ -163,26 +163,24 @@ def test_sweep_instanced_interaction_normals():
     np.testing.assert_array_equal(np.asarray(occ_i), np.asarray(occ_f))
 
 
-def test_sweep_scene_render_matches_cluster():
+def test_sweep_scene_render_matches_dense():
     """End-to-end: a mesh render through the sweep accel matches the
-    cluster accel (same hits, same radiometry)."""
+    dense tester (same hits, same radiometry)."""
     from pbrt_tpu.films.rgb import spectrum_to_rgb
     from pbrt_tpu.models.path import PathIntegrator
     from pbrt_tpu.render import camera_rays
     from pbrt_tpu.scenes.meshes import mesh_gallery_scene
 
     scene, camera = mesh_gallery_scene(resolution=(32, 32), subdiv=3)
-    sc_sweep = scene.replace(small=None, clusters=None).with_accel(
-        kind="sweep")
-    sc_clust = scene.replace(small=None, clusters=None).with_accel(
-        kind="cluster")
+    sc_sweep = scene.replace(small=None, sweep=None).with_accel(threshold=0)
+    sc_dense = scene.replace(small=None, sweep=None)
     integ = PathIntegrator(max_depth=3, rr_start_depth=3)
     nx, ny = camera.resolution
     pixel = jnp.arange(nx * ny, dtype=jnp.int32)
     sample = jnp.zeros_like(pixel)
     o, d, wl = camera_rays(camera, pixel, sample, jnp.int32(0))
     l_s = integ.trace(sc_sweep, o, d, wl, pixel, sample, jnp.int32(0))
-    l_c = integ.trace(sc_clust, o, d, wl, pixel, sample, jnp.int32(0))
+    l_c = integ.trace(sc_dense, o, d, wl, pixel, sample, jnp.int32(0))
     rgb_s = np.asarray(spectrum_to_rgb(l_s, wl))
     rgb_c = np.asarray(spectrum_to_rgb(l_c, wl))
     np.testing.assert_allclose(rgb_s, rgb_c, rtol=2e-3, atol=2e-3)

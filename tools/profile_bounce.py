@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Per-stage timing of one path-tracing bounce on the real TPU.
+"""Per-stage timing of one path-tracing bounce on the GPU.
 
 Times each stage of PathIntegrator.bounce in isolation (own jit, realistic
 shapes) to locate the Mrays/s bottleneck. Not part of the test suite.
@@ -14,8 +14,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from pbrt_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 
 def timeit(name, fn, *args, reps=20):
